@@ -3,23 +3,37 @@
 
     python3 chip_smoke.py
 
-Phases (any failure: exit code 1 and no result line):
+Phases (any failure: exit code 1 and no result line; each prints its
+seconds):
  1. device  - a CUDA device must exist (no CPU fallback); prints the card's
               name and power limit (nvidia-smi) and turns TF32 off;
- 2. build   - compiles every kernel of the path from csrc/ with nvcc, in
-              parallel, and prints the build seconds and ptxas's report;
+ 2. build   - compiles every kernel library from csrc/ with nvcc, one
+              process per source, all started together, and prints the
+              build seconds and ptxas's report;
  3. kernels - K1 (csrc/lane_contact.cu) against its plain PyTorch version on
               the same card inputs, float32, at B = 1024: TactilePush
               (ground, cuboid), RollingBall 8x8 (sphere) and a hand-made
               cylinder scene, each with static and per-lane parameters; to
-              1e-5 x the output's scale (the sums run in another order);
-              kernel and plain times at the main path's shapes;
- 4. slice   - the port's main path through its entry points: a
-              TactilePush tactile_flatten forward policy rollout at B = 1024
-              (DiagGaussianActor [64, 64] elu, random weights from a seed);
-              K1 must launch 1 + 47 times per env step, outputs finite;
- 5. cross   - 2 env steps at B = 16 on the card (K1, float32) against the
-              port on the CPU (plain version, float64).
+              1e-5 x the output's scale (the sums run in another order).
+              K2 and K3 (csrc/megastep.cu) against theirs on TactilePush
+              contact states: float64 at B = 64, float32 with K2 at
+              B = 1024 and K3 at B = 128. Kernel and plain times at the
+              main path's shapes;
+ 4. slice   - slice 1 through its entry points: a TactilePush
+              tactile_flatten forward policy rollout at B = 1024 on the lanes
+              stepper (``rebuild_solver(mega=False)``; DiagGaussianActor
+              [64, 64] elu, random weights from a seed); K1 must launch
+              1 + 47 times per env step, outputs finite;
+ 5. train   - slice 2: (a) a differentiable rollout at B = 1024, H = 5 on
+              the mega path, -mean(sum of rewards) back to the actor's
+              parameters: K2 = K3 = H launches, K1 = 1 + H (tactile obs)
+              with H - 1 twin recomputes, finite gradients; (b) the GD trainer
+              with examples/TactilePushExp/cfg/gd_tactile.yaml (E = 16,
+              H = 100) for 2 epochs: finite loss, the parameters move;
+ 6. cross   - 2 env steps at B = 16 on the card (mega path, float32)
+              against the port on the CPU (lanes stepper and plain
+              versions, float64): values, and the BPTT gradient w.r.t. the
+              actor's parameters.
 
 The line before the card's line is the kernel table as JSON; the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -40,7 +54,8 @@ import numpy as np
 import torch
 
 B_MAIN = 1024            # lanes of the main path
-H_MAIN = 5               # env steps of the timed slice run
+H_MAIN = 2               # env steps of the timed slice-1 run
+H_TRAIN = 5              # env steps of the timed differentiable rollout
 B_CROSS, H_CROSS = 16, 2
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12         # non-tensor-core fp32 peak
@@ -52,10 +67,45 @@ ACTOR_CFG = {"actor_mlp": {"layer_sizes": [64, 64], "activation": "elu",
 # frame transform, relative velocity and SDF; +3 for a tactile row
 K1_FLOPS_PER_POINT = {-1: 107, 0: 185, 1: 178, 2: 160}
 K1_TOL = 1e-5
-
-KERNELS = [dict(name="K1 lane_contact", lib="lane_contact", route="cuda",
+# arithmetic operations per lane of K2/K3's units of work on TactilePush
+# (n = 7), counted by running csrc/megastep.cu's device code on the host with
+# an operation-counting scalar (python -m
+# tactilesimulation_tpu_torch.ops.host_kernels); every +, -, *, /, sqrt, sin,
+# cos, abs, max, min of every dual level counts one
+K23_OPS = {"momentum": 64057, "residual": 180720, "column": 472800,
+           "momentum_column": 167293, "factor": 234, "solve": 91}
+# K2/K3 against their plain version. float64: the same algorithm in the same
+# order to round-off (measured 2e-13 on values, 1e-14 on gradients); the
+# chord's stop masks cannot flip at this precision.
+K23_F64_TOL = {"fwd": 1e-9, "bwd": 1e-7}
+# float32, on resting contact states (resting_contact), where the chord
+# converges: the kernel and the plain version sum in another order (the
+# plain version's index_add uses atomics on the card, so its round-off
+# varies from run to run), and f32's stop rule (1e-4 x the first residual)
+# lets the two stop one sweep apart on a lane: K2's values agree to about
+# that rule (1.2e-4 of scale measured on the card), K3's gradients, whose
+# solves do not iterate, to round-off through J (1e-4 on the host build).
+# On contact_state's states the f32 chord does not converge within 8 sweeps
+# and round-off grows through up to 40 sweeps (1e-3 to 5e-3 of scale
+# measured on the card, varying between runs), so those states are held in
+# float64 only.
+K23_F32_TOL = {"fwd": 1e-3, "fwd_cos": 0.99999, "bwd": 1e-3,
+               "bwd_cos": 0.99999}
+# card (mega, f32) against CPU (lanes, f64) BPTT gradient (see cross())
+CROSS_GRAD_TOL = {"rel": 1e-3, "cos": 0.99999}
+MEGA = "tactilesimulation_tpu_torch/csrc/megastep.cu"
+KERNELS = [dict(name="K1 lane_contact", key="K1", lib="lane_contact",
+                route="cuda",
                 source="tactilesimulation_tpu_torch/csrc/lane_contact.cu",
-                replaces="tactilesimulation_tpu/ops/lane_contact.py:413")]
+                replaces="tactilesimulation_tpu/ops/lane_contact.py:413"),
+           dict(name="K2 megastep forward", key="K2", lib="megastep",
+                route="cuda", source=MEGA,
+                replaces="tactilesimulation_tpu/ops/megastep.py:799"),
+           dict(name="K3 megastep adjoint", key="K3", lib="megastep",
+                route="cuda", source=MEGA,
+                replaces="tactilesimulation_tpu/ops/megastep.py:831")]
+GD_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                      "TactilePushExp", "cfg", "gd_tactile.yaml")
 
 
 def cylinder_probe(scenes):
@@ -89,6 +139,17 @@ def contact_state(name, q_init, B, seed):
     return q, 0.1 * rng.randn(n, B)
 
 
+def resting_contact(q_init, B, seed):
+    """TactilePush (q, v) float64 (n, B) at rest with the pad pressed
+    0.1-1 mm into the box and the box up to 0.3 mm into the ground: contact
+    in every lane, and the chord converges from the entry factor."""
+    rng = np.random.RandomState(seed)
+    q = np.repeat(q_init[:, None], B, axis=1)
+    q[1] = rng.uniform(0.0001, 0.001, B)
+    q[5] = rng.uniform(-0.0003, 0.0, B)
+    return q, np.zeros_like(q)
+
+
 def cuda_ms(fn, iters, warmup=3):
     for _ in range(warmup):
         fn()
@@ -110,6 +171,7 @@ class Smoke:
 
     def phase(self, name, fn, *args):
         print(f"== {name}", flush=True)
+        t0 = time.perf_counter()
         try:
             return fn(*args)
         except Exception:                      # report and fail the run
@@ -117,6 +179,8 @@ class Smoke:
             self.failed.append(name)
             print(f"PHASE FAILED: {name}", flush=True)
             return None
+        finally:
+            print(f"== {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 1 -------------------------------------------------------------------
     def device(self):
@@ -134,21 +198,21 @@ class Smoke:
     # 2 -------------------------------------------------------------------
     def build(self):
         from tactilesimulation_tpu_torch.ops import _build
+        libs = sorted({k["lib"] for k in KERNELS})
         t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
-            futs = {k["lib"]: ex.submit(_build.build, k["lib"],
-                                        ("-Xptxas", "-v"), True)
-                    for k in KERNELS}
+        with concurrent.futures.ThreadPoolExecutor(len(libs)) as ex:
+            futs = {lib: ex.submit(_build.build, lib, ("-Xptxas", "-v"),
+                                   True) for lib in libs}
             for lib, fut in futs.items():
                 fut.result()
-        print(f"built {len(KERNELS)} kernel(s) in "
+        print(f"built {len(libs)} librar(ies) for {len(KERNELS)} kernels in "
               f"{time.perf_counter() - t0:.2f} s")
-        for k in KERNELS:
-            lib = k["lib"]
+        for lib in libs:
             print(f"  {lib}: nvcc {_build.build_seconds[lib]:.2f} s")
             for line in _build.build_log[lib].splitlines():
-                if "registers" in line or "spill" in line:
-                    print("   ", line.strip())
+                if ("Compiling entry" in line or "registers" in line
+                        or "spill" in line or "stack frame" in line):
+                    print("   ", line.strip()[:160])
             _build.load(lib)
 
     # 3 -------------------------------------------------------------------
@@ -229,10 +293,129 @@ class Smoke:
               f"{p_ms:.4f} ms; moves {bytes_moved} B ({t_bytes:.5f} ms), "
               f"{flops} flop ({t_ops:.5f} ms); bound {bound:.5f} ms; "
               f"worst rel err {worst:.2e}")
-        self.kernel_rows["lane_contact"] = dict(
+        self.kernel_rows.setdefault("K1", {}).update(
             max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None)
+        self.megastep_kernels(dev)
+
+    @staticmethod
+    def _bound(bytes_moved, ops):
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_FLOPS_PER_S * 1e3
+        return (max(t_bytes, t_ops),
+                "bytes" if t_bytes >= t_ops else "operations", t_bytes, t_ops)
+
+    def megastep_kernels(self, dev):
+        """K2 and K3 against their plain version (f64 and f32), and their
+        times at B = 1024 beside their bounds."""
+        from tactilesimulation_tpu_torch.model import task_scenes
+        from tactilesimulation_tpu_torch.ops import megastep
+        struct, model = task_scenes.tactile_push()
+        n, nu, K = struct.ndof_q, struct.ndof_u, 5
+
+        def case(dtype, B, seed, state=contact_state):
+            if state is contact_state:
+                q, v = contact_state("tactile_push", model.q_init.numpy(), B,
+                                     seed=seed)
+            else:
+                q, v = state(model.q_init.numpy(), B, seed)
+            rng = np.random.RandomState(seed + 1)
+            u = 0.5 * rng.randn(nu, B)
+            g = rng.randn(4, n, B)
+            t = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                          dtype=dtype, device=dev)
+            return t(q), t(v), t(u), [t(x) for x in g]
+
+        def errs(got, want):
+            out = []
+            for a, b in zip(got, want):
+                scale = float(b.abs().max())
+                err = float((a - b).abs().max())
+                cos = float((a * b).sum() / (a.norm() * b.norm()))
+                if not (math.isfinite(err) and math.isfinite(cos)):
+                    raise AssertionError("non-finite kernel output")
+                out.append((err, err / scale, cos))
+            return out
+
+        def check(name, got, want, tol, cos_min=None):
+            res = errs(got, want)
+            print(f"  {name}: " + " ".join(
+                f"|err| {e:.2e} rel {r:.2e} cos {c:.9f};" for e, r, c in res)
+                + f" (tol rel {tol:g}" + (f", cos {cos_min}" if cos_min
+                                          else "") + ")")
+            for e, r, c in res:
+                if r > tol or (cos_min is not None and c < cos_min):
+                    raise AssertionError(f"{name} disagrees with its plain "
+                                         "version")
+            return max(e for e, _, _ in res)
+
+        # float64 at B = 64: the algorithm, to round-off
+        op = megastep.MegaStep(struct, model.to(dev, torch.float64), K, 8)
+        q, v, u, g = case(torch.float64, 64, 0)
+        want = op.fwd_ref(q, v, u)
+        check("K2 f64 B=64 (q, qdot, vs)", op.run_fwd(q, v, u), want,
+              K23_F64_TOL["fwd"])
+        check("K3 f64 B=64 (g_q0, g_qdot0, g_u)",
+              op.run_bwd(q, v, u, want[2], *g),
+              op.bwd_ref(q, v, u, want[2], *g), K23_F64_TOL["bwd"])
+
+        # float32: K2 at B = 1024 (the main path's width), K3 at B = 128
+        op = megastep.MegaStep(struct, model.to(dev, torch.float32), K, 8)
+        q, v, u, g = case(torch.float32, B_MAIN, 0, resting_contact)
+        got = op.run_fwd(q, v, u)
+        nres = op.last_residuals.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = op.fwd_ref(q, v, u)
+        torch.cuda.synchronize()
+        k2_plain = (time.perf_counter() - t0) * 1e3
+        k2_err = check(f"K2 f32 B={B_MAIN} (q, qdot, vs)", got, want,
+                       K23_F32_TOL["fwd"], K23_F32_TOL["fwd_cos"])
+        k2_ms = cuda_ms(lambda: op.run_fwd(q, v, u), 5, warmup=1)
+        Bb = 128
+        sub = lambda a: a[..., :Bb].contiguous()
+        args = [sub(a) for a in (q, v, u, want[2])] + [sub(a) for a in g]
+        k3_err = check(f"K3 f32 B={Bb} (g_q0, g_qdot0, g_u)",
+                       op.run_bwd(*args), op.bwd_ref(*args),
+                       K23_F32_TOL["bwd"], K23_F32_TOL["bwd_cos"])
+        k3_ms = cuda_ms(lambda: op.run_bwd(q, v, u, want[2], *g), 3,
+                        warmup=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        op.bwd_ref(q, v, u, want[2], *g)
+        torch.cuda.synchronize()
+        k3_plain = (time.perf_counter() - t0) * 1e3
+
+        # bounds from this run's inputs: bytes in and out once, operations
+        # counted per lane (K2's chord stops early on converged lanes)
+        tables = sum(4 * t.numel() for t in op.tables.packed(dev,
+                                                             torch.float32))
+        o = K23_OPS
+        evals = int(nres.sum())
+        k2_ops = (B_MAIN * ((K + 1) * o["momentum"] + n * o["column"]
+                            + o["factor"])
+                  + evals * o["residual"] + (evals - B_MAIN * K) * o["solve"])
+        k2_bytes = tables + 4 * B_MAIN * (2 * n + nu + 2 * n + K * n + 1)
+        k3_ops = B_MAIN * K * (o["momentum"] + 2 * n * o["column"]
+                               + 2 * n * o["momentum_column"] + o["factor"]
+                               + o["solve"])
+        k3_bytes = tables + 4 * B_MAIN * (2 * n + nu + K * n + 4 * n
+                                          + 2 * n + nu)
+        for key, ms, plain, err, bts, ops in (
+                ("K2", k2_ms, k2_plain, k2_err, k2_bytes, k2_ops),
+                ("K3", k3_ms, k3_plain, k3_err, k3_bytes, k3_ops)):
+            bound, by, t_b, t_o = self._bound(bts, ops)
+            print(f"  {key} TactilePush f32 B={B_MAIN}: kernel {ms:.3f} ms, "
+                  f"plain {plain:.1f} ms; moves {bts} B ({t_b:.5f} ms), "
+                  f"{ops:.4e} op ({t_o:.4f} ms); bound {bound:.4f} ms by "
+                  f"{by}; {100 * bound / ms:.2f} % of it [{self.card}]")
+            self.kernel_rows.setdefault(key, {}).update(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                bound_by=by, library_ms=None)
+        print(f"  K2 residual evaluations per lane: mean "
+              f"{evals / B_MAIN:.2f} of {K * 9} (chord stops early on "
+              f"converged lanes)")
 
     # 4 -------------------------------------------------------------------
     def slice(self, dev):
@@ -240,19 +423,22 @@ class Smoke:
         from tactilesimulation_tpu_torch.models.nets import DiagGaussianActor
         from tactilesimulation_tpu_torch.sim import lanes
         env = tactile_push_lanes.make("tactile_flatten", device=dev, seed=0)
+        env.rebuild_solver(mega=False)          # slice 1: the lanes stepper
         torch.manual_seed(0)
         actor = DiagGaussianActor(env.obs_size()[0], env.ndof_u,
                                   ACTOR_CFG).to(dev)
         pw = env.pair_wrenches
         per_step = 1 + env.frame_skip * (1 + env.max_iter) + 1
         # warm-up env step (device tables, library handles)
-        env.batched_rollout_fn(actor.act, 1)(B_MAIN)
+        with torch.no_grad():
+            env.batched_rollout_fn(actor.act, 1)(B_MAIN)
         torch.cuda.synchronize()
 
         run = env.batched_rollout_fn(actor.act, H_MAIN)
         pw.reset_counts()
         t0 = time.perf_counter()
-        rewards, dones, infos = run(B_MAIN)
+        with torch.no_grad():
+            rewards, dones, infos = run(B_MAIN)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, vjps, recomputes = (pw.launches, pw.twin_vjps,
@@ -270,7 +456,7 @@ class Smoke:
         for k, x in [("reward", rewards)] + list(infos.items()):
             if not bool(torch.isfinite(x).all()):
                 raise AssertionError(f"{k} not finite")
-        self.kernel_rows["lane_contact"]["launches"] = launches
+        self.kernel_rows.setdefault("K1", {})["launches"] = launches
         steps_s = H_MAIN / wall
         print(f"  slice: B={B_MAIN} H={H_MAIN} in {wall:.3f} s: "
               f"{steps_s:.4f} env steps/s, {steps_s * B_MAIN:.1f} lane "
@@ -293,7 +479,7 @@ class Smoke:
             j_ms = cuda_ms(lambda: lanes.make_chord_lu(residual, inputs,
                                                       sim.qdot), 3)
             step_ms = wall / H_MAIN * 1e3
-        k_ms = self.kernel_rows["lane_contact"]["ms"]
+        k_ms = self.kernel_rows.get("K1", {}).get("ms", float("nan"))
         print(f"  env step {step_ms:.1f} ms: chord factor (7 pullbacks) "
               f"{j_ms:.1f} ms, residual {r_ms:.2f} ms x "
               f"{per_step - 1}, K1 {k_ms * per_step:.3f} ms in all "
@@ -301,12 +487,12 @@ class Smoke:
         self.device_share(lambda: residual(sim.qdot, inputs), "residual")
 
     @staticmethod
-    def device_share(fn, what):
+    def device_share(fn, what, grad=False):
         """Device busy share of one call of ``fn``, from torch.profiler."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         try:
-            with torch.no_grad(), profile(activities=[
+            with torch.set_grad_enabled(grad), profile(activities=[
                     ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 fn()
@@ -330,6 +516,123 @@ class Smoke:
               f"{kernels} kernels")
 
     # 5 -------------------------------------------------------------------
+    def train(self, dev):
+        """Slice 2: BPTT through the mega path, then the GD trainer."""
+        import yaml
+        from tactilesimulation_tpu_torch.algorithms.gd import GD
+        from tactilesimulation_tpu_torch.envs import tactile_push_lanes
+        from tactilesimulation_tpu_torch.models.nets import DiagGaussianActor
+        env = tactile_push_lanes.make("tactile_flatten", device=dev, seed=0)
+        if not env.solver_mega:
+            raise AssertionError("the card's env did not pick the megastep")
+        torch.manual_seed(0)
+        actor = DiagGaussianActor(env.obs_size()[0], env.ndof_u,
+                                  ACTOR_CFG).to(dev)
+        params = list(actor.parameters())
+        pw, mega = env.pair_wrenches, env.megastep
+
+        def rollout_grad(B, H):
+            t0 = time.perf_counter()
+            rewards = env.batched_rollout_fn(actor.act, H)(B)[0]
+            loss = -torch.mean(torch.sum(rewards, dim=1))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            torch.cuda.synchronize()
+            return loss, grads, t1 - t0, time.perf_counter() - t1
+
+        rollout_grad(B_MAIN, 1)                   # warm-up
+        mega.reset_counts()
+        pw.reset_counts()
+        loss, grads, t_fwd, t_bwd = rollout_grad(B_MAIN, H_TRAIN)
+        counts = dict(K2=mega.fwd_launches, K3=mega.bwd_launches,
+                      K1=pw.launches, twin=pw.twin_recomputes)
+        # K1 runs for every observation (reset + H); its twin's backward
+        # for each one an action was taken on (the reset's carries no graph
+        # and the last one feeds no action): H - 1
+        want = dict(K2=H_TRAIN, K3=H_TRAIN, K1=1 + H_TRAIN,
+                    twin=H_TRAIN - 1)
+        print(f"  launches {counts} (want {want})")
+        if counts != want:
+            raise AssertionError("the differentiable rollout did not run "
+                                 "through K2/K3/K1 as expected")
+        live = [g for g in grads if g is not None]
+        if not live or not all(bool(torch.isfinite(g).all()) for g in live):
+            raise AssertionError("non-finite or missing gradients")
+        gnorm = float(torch.sqrt(sum(torch.sum(g * g) for g in live)))
+        if not gnorm > 0:
+            raise AssertionError("zero gradient")
+        for key in ("K2", "K3"):
+            self.kernel_rows.setdefault(key, {})["launches"] = counts[key]
+        wall = t_fwd + t_bwd
+        steps_s = H_TRAIN / wall
+        print(f"  differentiable rollout B={B_MAIN} H={H_TRAIN}: loss "
+              f"{float(loss.detach()):.4f}, |grad| {gnorm:.4e}; forward "
+              f"{t_fwd:.3f} s, "
+              f"backward {t_bwd:.3f} s: {steps_s:.3f} env steps/s, "
+              f"{steps_s * B_MAIN:.1f} lane steps/s, "
+              f"{B_MAIN * steps_s / 150:.3f} differentiable rollouts/s at "
+              f"H=150 [{self.card}]")
+        k2, k3, k1 = (self.kernel_rows.get(key, {}).get("ms", float("nan"))
+                      for key in ("K2", "K3", "K1"))
+        step_ms = wall / H_TRAIN * 1e3
+        print(f"  per env step {step_ms:.1f} ms: K2 {k2:.2f} ms "
+              f"({100 * k2 / step_ms:.1f} %), K3 {k3:.2f} ms "
+              f"({100 * k3 / step_ms:.1f} %), K1 {k1:.3f} ms "
+              f"({100 * k1 / step_ms:.2f} %), rest "
+              f"{step_ms - k2 - k3 - k1:.1f} ms")
+        self.device_share(lambda: rollout_grad(B_MAIN, 1), "one env step "
+                          "forward + backward", grad=True)
+
+        # (b) the GD trainer, gd_tactile.yaml protocol, 2 epochs
+        with open(GD_CFG) as fp:
+            cfg = yaml.safe_load(fp)["params"]
+        genv = tactile_push_lanes.make(cfg["env"]["observation_type"],
+                                       device=dev, seed=0)
+        trainer = GD(genv, cfg, seed=0)
+        before = [p.detach().clone() for p in trainer.actor.parameters()]
+        genv.megastep.reset_counts()
+        genv.pair_wrenches.reset_counts()
+        t0 = time.perf_counter()
+        mean_r = trainer.train(stop_epoch=2)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / 2
+        moved = max(float((p.detach() - b).abs().max()) for p, b in
+                    zip(trainer.actor.parameters(), before))
+        E, H = trainer.num_episodes, trainer.horizon
+        print(f"  GD E={E} H={H}: {sec:.2f} s per epoch, "
+              f"{E * H / sec:.1f} lane steps/s, mean reward {mean_r:.4f}, "
+              f"max parameter move {moved:.3e}; launches K2 "
+              f"{genv.megastep.fwd_launches}, K3 {genv.megastep.bwd_launches}"
+              f", K1 {genv.pair_wrenches.launches} [{self.card}]")
+        if not (math.isfinite(mean_r) and moved > 0):
+            raise AssertionError("GD: non-finite loss or the parameters did "
+                                 "not move")
+        if genv.megastep.fwd_launches != 2 * H:
+            raise AssertionError("GD did not step through K2")
+        # where a GD epoch's time goes: the same rollout, halves timed
+        op = genv.megastep
+        t0 = time.perf_counter()
+        loss, _, _, _ = trainer.epoch_loss()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.autograd.grad(loss, list(trainer.actor.parameters()),
+                            allow_unused=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        q = genv.model.q_init[:, None].repeat(1, E).contiguous()
+        qd = torch.zeros_like(q)
+        u = torch.zeros((genv.struct.ndof_u, E), device=dev)
+        qo, qdo, vs = op.run_fwd(q, qd, u)
+        g = [torch.ones_like(q)] * 4
+        k2e = cuda_ms(lambda: op.run_fwd(q, qd, u), 5, warmup=1)
+        k3e = cuda_ms(lambda: op.run_bwd(q, qd, u, vs, *g), 5, warmup=1)
+        print(f"  GD epoch halves: rollout {t1 - t0:.2f} s, backward "
+              f"{t2 - t1:.2f} s; at B={E}: K2 {k2e:.2f} ms x {H} = "
+              f"{k2e * H / 1e3:.2f} s, K3 {k3e:.2f} ms x {H} = "
+              f"{k3e * H / 1e3:.2f} s (resting state)")
+
+    # 6 -------------------------------------------------------------------
     def cross(self, dev):
         from tactilesimulation_tpu_torch.envs import tactile_push_lanes
         from tactilesimulation_tpu_torch.models.nets import DiagGaussianActor
@@ -367,22 +670,35 @@ class Smoke:
             pw = env.pair_wrenches
             pw.reset_counts()
             rewards = []
-            with torch.no_grad():
-                state, obs = env.reset(B)
-                for _ in range(H):
-                    state, obs, r, _, _ = env.step(state, pol.act(obs))
-                    rewards.append(r)
-            runs.append([x.double().cpu() for x in
-                         (state.sim.q, state.sim.qdot, torch.stack(rewards),
-                          obs)])
-            print(f"  {where.type} {dtype}: K1 launches {pw.launches}")
+            state, obs = env.reset(B)
+            for _ in range(H):
+                state, obs, r, _, _ = env.step(state, pol.act(obs))
+                rewards.append(r)
+            rewards = torch.stack(rewards)
+            loss = -torch.mean(torch.sum(rewards, dim=0))
+            grads = torch.autograd.grad(loss, list(pol.parameters()),
+                                        allow_unused=True)
+            flat = torch.cat([g.reshape(-1) for g in grads if g is not None])
+            runs.append([x.detach().double().cpu() for x in
+                         (state.sim.q, state.sim.qdot, rewards, obs, flat)])
+            mega = env.megastep
+            print(f"  {where.type} {dtype}: mega {env.solver_mega}, K1 "
+                  f"launches {pw.launches}"
+                  + (f", K2 {mega.fwd_launches}, K3 {mega.bwd_launches}"
+                     if mega else ""))
+        if not float(runs[1][4].norm()) > 0:
+            raise AssertionError("zero BPTT gradient")
         # Tolerance: f32 round-off through the chord solve, whose float32
         # stopping rule is 1e-4 x the first residual, gives about 1e-6
         # relative on q (3e-7 measured on the CPU, f32 against f64, with
-        # these draws). At a contact switch under one chord factor per env
-        # step, f32 and f64 part by ~1% even with 30 sweeps, so this window
-        # keeps the pad away from the box; the pad-box branches are held to
-        # the plain version in phase 3.
+        # these draws); the card's megastep stops the chord at 1e-7, the
+        # CPU's lanes stepper at 1e-8 (f64). At a contact switch under one
+        # chord factor per env step, f32 and f64 part by ~1% even with 30
+        # sweeps, so this window keeps the pad away from the box; the
+        # pad-box branches are held to the plain version in phase 3. The
+        # gradient goes through 2 x 5 adjoint solves in f32: it is held by
+        # cosine and by its relative error (norm of the difference over
+        # the norm of the f64 gradient).
         tols = {"q": 1e-5, "qdot": 1e-4, "reward": 1e-5, "obs": 1e-5}
         for (name, tol), g, w in zip(tols.items(), *runs):
             scale = float(w.abs().max())
@@ -391,6 +707,16 @@ class Smoke:
                   f"rel {err / scale:.3e} (tol {tol:g})")
             if not err <= tol * scale:
                 raise AssertionError(f"cross-check {name}: {err / scale:.3e}")
+        g, w = runs[0][4], runs[1][4]
+        rel = float((g - w).norm() / w.norm())
+        cos = float(g @ w / (g.norm() * w.norm()))
+        print(f"  BPTT grad ({w.numel()} parameters) card f32 mega vs cpu "
+              f"f64 lanes: |grad| {float(w.norm()):.4e}, rel err {rel:.3e} "
+              f"(tol {CROSS_GRAD_TOL['rel']:g}), cos {cos:.9f} (tol "
+              f"{CROSS_GRAD_TOL['cos']})")
+        if not (rel <= CROSS_GRAD_TOL["rel"]
+                and cos >= CROSS_GRAD_TOL["cos"]):
+            raise AssertionError("cross-check: BPTT gradient")
 
 
 def main() -> int:
@@ -410,6 +736,7 @@ def main() -> int:
     if not s.failed:
         s.phase("kernels", s.kernels, dev)
         s.phase("slice", s.slice, dev)
+        s.phase("train", s.train, dev)
         s.phase("cross", s.cross, dev)
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failed:
@@ -417,7 +744,7 @@ def main() -> int:
         return 1
     rows = []
     for k in KERNELS:
-        r = s.kernel_rows[k["lib"]]
+        r = s.kernel_rows[k["key"]]
         rows.append(dict(name=k["name"], route=k["route"], source=k["source"],
                          replaces=k["replaces"], launches=r["launches"],
                          max_abs_err=r["max_abs_err"], ms=r["ms"],

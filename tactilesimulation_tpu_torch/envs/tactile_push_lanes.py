@@ -1,15 +1,24 @@
 """Lane-major (batch-last) batched TactilePush: the rollout hot path.
 
-Port of ``tactilesimulation_tpu/envs/tactile_push_lanes.py`` with the lanes
-stepper and the fused contact op (K1): one chord factor per env step
-(refresh 0), chord budget max(solver_max_iter + 2, 8), and K1 in every
-residual evaluation and in the tactile observation. Per env step K1 runs
-1 (Jacobian build) + frame_skip x (1 + max_iter) (chord) + 1 (tactile
-field) times: 47 on TactilePush.
+Port of ``tactilesimulation_tpu/envs/tactile_push_lanes.py``: one chord
+factor per env step (refresh 0), chord budget max(solver_max_iter + 2, 8),
+and the exact IFT adjoint. ``rebuild_solver(mega="auto")`` picks the
+stepper:
 
-The rollout is forward-only in this port (no gradient through the chord
-solve yet). Randomness comes from a ``torch.Generator``; every draw goes
-through ``TactilePushLanes._draw`` so tests can hand in other draws.
+- the fused megastep (``ops/megastep.py``: K2 forward, K3 backward) when
+  the model lives on a CUDA device and the scene passes
+  ``megastep.supported``;
+- otherwise the lanes stepper (``sim/lanes.build_env_step``) with the
+  contact op K1 in every residual: per env step K1 runs 1 (Jacobian
+  build) + frame_skip x (1 + max_iter) (chord) times, 46 on TactilePush.
+
+The tactile observation runs K1 once per env step on either path (47 per
+env step on the lanes stepper), and its backward is K1's plain twin.
+
+Rollouts keep the autograd graph: a loss on the rewards differentiates to
+the policy's parameters (BPTT). Randomness comes from a ``torch.Generator``;
+every draw goes through ``TactilePushLanes._draw`` so tests can hand in
+other draws.
 """
 
 from __future__ import annotations
@@ -20,7 +29,7 @@ from typing import Callable, Tuple
 
 import torch
 
-from ..ops import lane_contact
+from ..ops import lane_contact, megastep
 from ..sim import lanes
 from . import tactile_push
 from .tactile_push import TACTILE_COLS, TACTILE_ROWS
@@ -57,16 +66,35 @@ class TactilePushLanes:
         self.frame_skip = env.frame_skip
         self.ndof_u = env.ndof_u
         self.max_episode_steps = env.max_episode_steps
-        # amortized chord: two extra iterations over the scene's budget
-        self.max_iter = max_iter or max(self.struct.solver_max_iter + 2, 8)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         pw, meta = lane_contact.make_pair_wrenches(self.struct)
         self._pw = (pw, meta)
         self.pair_wrenches = pw
-        self._multi_step = lanes.build_env_step(
-            self.struct, self.frame_skip, max_iter=self.max_iter,
-            fused_pw=self._pw)
+        self.rebuild_solver(max_iter=max_iter)
+
+    def rebuild_solver(self, max_iter: int = 0, mega="auto"):
+        """(Re)build the frame_skip-substep env step (the JAX package's
+        ``rebuild_solver`` at refresh 0, bwd_mode 'exact'): the fused
+        megastep (K2/K3) when ``mega`` is true, or "auto" and the model is on
+        a CUDA device and the scene is ``megastep.supported``; the lanes
+        stepper with K1 otherwise. ``max_iter`` 0 keeps the amortized chord
+        budget max(solver_max_iter + 2, 8)."""
+        self.max_iter = max_iter or max(self.struct.solver_max_iter + 2, 8)
+        if mega == "auto":
+            mega = (self.device.type == "cuda"
+                    and megastep.supported(self.struct, self.model))
+        self.solver_mega = bool(mega)
+        if self.solver_mega:
+            self._multi_step = megastep.build_env_step_mega(
+                self.struct, self.model, self.frame_skip,
+                max_iter=self.max_iter)
+            self.megastep = self._multi_step.op
+        else:
+            self._multi_step = lanes.build_env_step(
+                self.struct, self.frame_skip, max_iter=self.max_iter,
+                fused_pw=self._pw)
+            self.megastep = None
 
     def obs_size(self):
         return self.env.obs_size()
@@ -193,20 +221,22 @@ class TactilePushLanes:
     def batched_rollout_fn(self, policy: Callable, horizon: int,
                            with_obs: bool = False):
         """run(B) -> (rewards (B, H), dones (B, H), infos {k: (B, H)}
-        [, obs (B, H, ...)]): B episodes as ONE lane-major forward rollout
-        of ``horizon`` env steps with actions ``policy(obs)`` (batch-first
-        obs -> (B, ndof_u)); ``obs`` holds the observation each action was
-        taken on."""
+        [, obs (B, H, ...)]): B episodes as ONE lane-major rollout of
+        ``horizon`` env steps with actions ``policy(obs)`` (batch-first obs
+        -> (B, ndof_u)); ``obs`` holds the observation each action was taken
+        on. The rewards carry the autograd graph back to whatever the policy
+        differentiates (its parameters) unless grad mode is off; on the
+        mega path each env step keeps only (q, qdot, u, vs (K, n, B)) for
+        its backward."""
 
         def run(B: int):
             outs = []
-            with torch.no_grad():
-                state, obs = self.reset(B)
-                for _ in range(horizon):
-                    state, obs2, reward, done, info = self.step(state,
-                                                                policy(obs))
-                    outs.append((reward, done, info, obs))
-                    obs = obs2
+            state, obs = self.reset(B)
+            for _ in range(horizon):
+                state, obs2, reward, done, info = self.step(state,
+                                                            policy(obs))
+                outs.append((reward, done, info, obs))
+                obs = obs2
             stack = lambda xs: torch.stack(list(xs), dim=1)
             rewards, dones, infos, seen = zip(*outs)
             info = {k: stack(i[k] for i in infos) for k in infos[0]}

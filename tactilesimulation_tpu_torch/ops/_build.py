@@ -2,13 +2,15 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first use
 with ``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>.so`` beside the
-package, then loaded with ``ctypes``. Nothing is compiled or loaded at
+package, then loaded with ``ctypes``. The shared headers ``csrc/*.cuh`` count
+as sources of every library. Nothing is compiled or loaded at
 import time, so the CPU tests can import every module without a toolkit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -45,8 +47,10 @@ def build(name: str, extra_flags=(), force: bool = False) -> str:
     The compiler's messages land in ``build_log[name]``."""
     src = os.path.join(CSRC, f"{name}.cu")
     out = library_path(name)
+    newest = max(os.path.getmtime(f) for f in
+                 [src] + glob.glob(os.path.join(CSRC, "*.cuh")))
     if (not force and os.path.exists(out)
-            and os.path.getmtime(out) >= os.path.getmtime(src)):
+            and os.path.getmtime(out) >= newest):
         return out
     os.makedirs(BUILD, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)

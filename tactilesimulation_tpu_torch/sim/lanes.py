@@ -13,8 +13,13 @@ Differentiation:
 - The chord Jacobian is built from n reverse-mode pullbacks of the residual
   (the JAX package's ``make_chord_lu(reverse=True)``): the fused contact
   kernel (``ops/lane_contact.py``) is reverse-mode only.
-- ``chord_solve`` is forward-only here; its implicit-function-theorem
-  adjoint is not ported yet.
+- ``chord_solve`` is an ``autograd.Function``: its forward is the chord
+  iteration under no graph, its backward the exact at-solution
+  implicit-function-theorem adjoint (the JAX package's ``bwd_mode='exact'``):
+  J^T rebuilt at v* from n pullbacks of one residual graph, a ridged LU,
+  lambda = J^{-T} g, and -lambda pulled back into (u, q_base, p_base).
+  Model leaves get no cotangent (the model is a constant of the port's
+  training path).
 
 Every scatter of the JAX version (``.at[].set/add``) is out of place
 (``index_copy``/``index_add`` or list-then-stack), so autograd sees a pure
@@ -115,6 +120,12 @@ def _tables(struct: Structure, like: torch.Tensor):
 def _relu(x):
     """max(x, 0) that splits the gradient at a tie, as ``jnp.maximum``."""
     return torch.maximum(x, x.new_zeros(()))
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip``: min(max(x, lo), hi), whose gradient is split at a bound
+    (``torch.clamp`` passes all of it)."""
+    return torch.minimum(torch.maximum(x, lo), hi)
 
 
 # ---------------------------------------------------------------------------
@@ -345,7 +356,7 @@ def motor_forces(struct: Structure, model: Model, q, v, u):
     kp = model.motor_kp.to(dtype)[:, None]
     kd = model.motor_kd.to(dtype)[:, None]
     mask = model.motor_pos_mask.to(dtype)[:, None]
-    uc = torch.clamp(u, lo, hi)
+    uc = _clip(u, lo, hi)
     pd = kp * (uc - q[dof]) - kd * v[dof]
     tau = mask * pd + (1.0 - mask) * uc
     return torch.zeros_like(q).index_add(0, dof, tau)
@@ -792,6 +803,25 @@ def gauss_solve(lu, b):
     return torch.stack(x)
 
 
+def gauss_solve_T(lu, b):
+    """Solve A^T x = b with gauss_factor(A) output (A = L U, unit-lower L):
+    forward substitution with U^T, then back substitution with L^T."""
+    n = lu.shape[0]
+    y = [None] * n
+    for i in range(n):
+        acc = b[i]
+        for j in range(i):
+            acc = acc - lu[j, i] * y[j]
+        y[i] = acc / lu[i, i]
+    x = [None] * n
+    for i in reversed(range(n)):
+        acc = y[i]
+        for j in range(i + 1, n):
+            acc = acc - lu[j, i] * x[j]
+        x[i] = acc
+    return torch.stack(x)
+
+
 # ---------------------------------------------------------------------------
 # implicit stepper (BDF1, amortized chord)
 # ---------------------------------------------------------------------------
@@ -891,21 +921,81 @@ def _chord(residual_fn, max_iter, tol, inputs, v_guess, lu):
     return v_best
 
 
+def chord_adjoint(residual_fn, inputs: StepInputs, v_star, g):
+    """The exact at-solution IFT adjoint of the chord solve (the JAX
+    package's ``_chord_bwd(..., 'exact', ...)``): (u_bar, q_base_bar,
+    p_base_bar) for the cotangent ``g`` (n, B) of v*.
+
+    One residual graph at v*: its n pullbacks along the basis give the rows
+    of J = dr/dv, then lambda = (ridged J^T)^{-1} g, and -lambda is pulled
+    back through the same graph into the inputs."""
+    n = v_star.shape[0]
+    with torch.enable_grad():
+        u = inputs.u.detach().requires_grad_()
+        q_base = inputs.q_base.detach().requires_grad_()
+        p_base = inputs.p_base.detach().requires_grad_()
+        v = v_star.detach().requires_grad_()
+        r = residual_fn(v, StepInputs(model=inputs.model, u=u, q_base=q_base,
+                                      p_base=p_base,
+                                      gamma=inputs.gamma.detach()))
+        basis = torch.eye(n, dtype=v.dtype, device=v.device)[:, :, None]
+        rows = [torch.autograd.grad(r, v, basis[i].expand_as(r),
+                                    retain_graph=True)[0]
+                for i in range(n)]
+        JT = torch.stack(rows).transpose(0, 1)   # JT[k, i] = dr_i/dv_k
+        lam = gauss_solve(gauss_factor(_ridge(JT)), g.to(v.dtype))
+        return torch.autograd.grad(r, (u, q_base, p_base), -lam,
+                                   allow_unused=True)
+
+
+class _ChordSolveFn(torch.autograd.Function):
+    """v* = chord(inputs) with the exact IFT adjoint as its backward."""
+
+    @staticmethod
+    def forward(ctx, residual_fn, max_iter, tol, model, lu, v_guess, u,
+                q_base, p_base, gamma):
+        inputs = StepInputs(model=model, u=u, q_base=q_base, p_base=p_base,
+                            gamma=gamma)
+        v_star = _chord(residual_fn, max_iter, tol, inputs, v_guess, lu)
+        ctx.residual_fn = residual_fn
+        ctx.model = model
+        ctx.save_for_backward(u, q_base, p_base, gamma, v_star)
+        return v_star
+
+    @staticmethod
+    def backward(ctx, g):
+        u, q_base, p_base, gamma, v_star = ctx.saved_tensors
+        inputs = StepInputs(model=ctx.model, u=u, q_base=q_base,
+                            p_base=p_base, gamma=gamma)
+        gu, gq, gp = chord_adjoint(ctx.residual_fn, inputs, v_star, g)
+        return (None, None, None, None, None, None, gu, gq, gp, None)
+
+
 def chord_solve(residual_fn, max_iter, tol, inputs: StepInputs, v_guess, lu):
-    """Forward-only chord solve: the result carries no graph (the implicit
-    adjoint of the JAX package's ``chord_solve`` is not ported yet)."""
-    with torch.no_grad():
-        return _chord(residual_fn, max_iter, tol, inputs, v_guess, lu)
+    """Chord solve with the exact IFT adjoint (``bwd_mode='exact'``).
+
+    Gradients reach ``inputs.u``, ``q_base`` and ``p_base``; the guess and
+    the factor are solver ingredients and get none."""
+    if not (torch.is_grad_enabled()
+            and any(x.requires_grad for x in (inputs.u, inputs.q_base,
+                                              inputs.p_base))):
+        with torch.no_grad():
+            return _chord(residual_fn, max_iter, tol, inputs, v_guess, lu)
+    return _ChordSolveFn.apply(residual_fn, max_iter, tol, inputs.model,
+                               lu.detach(), v_guess.detach(), inputs.u,
+                               inputs.q_base, inputs.p_base, inputs.gamma)
 
 
 def build_env_step(struct: Structure, frame_skip: int, *, max_iter: int = 0,
                    fused_pw=None):
     """``frame_skip`` implicit BDF1 substeps under one held control, with ONE
-    chord factor per env step (the JAX package's ``refresh=0``).
+    chord factor per env step (the JAX package's ``refresh=0``) and the
+    exact IFT adjoint (``bwd_mode='exact'``).
 
-    env_step(model, state, u) -> state'. ``max_iter`` overrides the scene's
-    chord budget; ``fused_pw = (pw, meta)`` from
-    ``ops.lane_contact.make_pair_wrenches`` routes contact through K1.
+    env_step(model, state, u) -> state', differentiable w.r.t. the state and
+    ``u``. ``max_iter`` overrides the scene's chord budget;
+    ``fused_pw = (pw, meta)`` from ``ops.lane_contact.make_pair_wrenches``
+    routes contact through K1.
     """
     if struct.integrator.upper() != "BDF1":
         raise ValueError(f"{struct.integrator}: only BDF1 is ported")

@@ -11,11 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ACTOR_CFG, contact_state, cylinder_probe
+from chip_smoke import (ACTOR_CFG, K23_F32_TOL, K23_F64_TOL, contact_state,
+                        cylinder_probe, resting_contact)
 from tactilesimulation_tpu_torch.envs import tactile_push_lanes
 from tactilesimulation_tpu_torch.model import task_scenes
 from tactilesimulation_tpu_torch.models.nets import DiagGaussianActor
-from tactilesimulation_tpu_torch.ops import lane_contact
+from tactilesimulation_tpu_torch.ops import lane_contact, megastep
 from tactilesimulation_tpu_torch.sim import contact, lanes
 
 pytestmark = pytest.mark.cuda
@@ -103,6 +104,7 @@ def test_k1_rejects_what_it_does_not_take(card):
 
 def test_slice_runs_through_k1(card):
     env = tactile_push_lanes.make("tactile_flatten", device=card, seed=0)
+    env.rebuild_solver(mega=False)             # slice 1: the lanes stepper
     torch.manual_seed(0)
     actor = DiagGaussianActor(env.obs_size()[0], env.ndof_u,
                               ACTOR_CFG).to(card)
@@ -111,3 +113,66 @@ def test_slice_runs_through_k1(card):
     assert tuple(rewards.shape) == (16, 1)
     assert bool(torch.isfinite(rewards).all())
     assert all(bool(torch.isfinite(x).all()) for x in infos.values())
+
+
+def _mega_case(dev, dtype, Bm, seed=0):
+    struct, model = task_scenes.tactile_push()
+    if dtype == torch.float64:
+        q, v = contact_state("tactile_push", model.q_init.numpy(), Bm,
+                             seed=seed)
+    else:
+        q, v = resting_contact(model.q_init.numpy(), Bm, seed)
+    rng = np.random.RandomState(seed + 1)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                  device=dev)
+    op = megastep.MegaStep(struct, model.to(dev, dtype), 5, 8)
+    return (op, t(q), t(v), t(0.5 * rng.randn(6, Bm)),
+            [t(rng.randn(7, Bm)) for _ in range(4)])
+
+
+# float64: the same algorithm to round-off, on violent contact states;
+# float32 on resting contact, where the chord converges (the tolerances and
+# their reasons: chip_smoke.py K23_F64_TOL, K23_F32_TOL)
+@pytest.mark.parametrize("dtype,fwd_tol,bwd_tol",
+                         [(torch.float64, K23_F64_TOL["fwd"],
+                           K23_F64_TOL["bwd"]),
+                          (torch.float32, K23_F32_TOL["fwd"],
+                           K23_F32_TOL["bwd"])], ids=["f64", "f32"])
+def test_k2_k3_match_plain_version(card, dtype, fwd_tol, bwd_tol):
+    op, q, v, u, g = _mega_case(card, dtype, 32)
+    got = op.run_fwd(q, v, u)
+    want = op.fwd_ref(q, v, u)
+    grads = op.run_bwd(q, v, u, want[2], *g)
+    ref = op.bwd_ref(q, v, u, want[2], *g)
+    torch.cuda.synchronize()
+    assert (op.fwd_launches, op.bwd_launches) == (1, 1)
+    for tol, pairs in ((fwd_tol, zip(got, want)), (bwd_tol, zip(grads, ref))):
+        for a, b in pairs:
+            assert bool(torch.isfinite(a).all())
+            assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+def test_k2_k3_reject_what_they_do_not_take(card):
+    op, q, v, u, g = _mega_case(card, torch.float32, 8)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        op.run_fwd(q.half(), v.half(), u.half())
+    with pytest.raises(ValueError, match="u"):
+        op.run_fwd(q, v, u[:3].contiguous())
+    with pytest.raises(ValueError, match="qdot"):
+        op.run_fwd(q, v.double(), u)
+    assert op.fwd_launches == 0
+
+
+def test_mega_rollout_backward_runs_through_k2_k3(card):
+    env = tactile_push_lanes.make("tactile_flatten", device=card, seed=0)
+    assert env.solver_mega
+    torch.manual_seed(0)
+    actor = DiagGaussianActor(env.obs_size()[0], env.ndof_u,
+                              ACTOR_CFG).to(card)
+    rewards = env.batched_rollout_fn(actor.act, 2)(16)[0]
+    loss = -rewards.sum(dim=1).mean()
+    grads = torch.autograd.grad(loss, list(actor.mlp.parameters()))
+    assert (env.megastep.fwd_launches, env.megastep.bwd_launches) == (2, 2)
+    assert env.pair_wrenches.launches == 1 + 2
+    assert all(bool(torch.isfinite(x).all()) for x in grads)
+    assert sum(float(x.abs().sum()) for x in grads) > 0
