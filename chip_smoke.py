@@ -8,17 +8,21 @@ seconds):
  1. device  - a CUDA device must exist (no CPU fallback); prints the card's
               name and power limit (nvidia-smi) and turns TF32 off;
  2. build   - compiles every kernel library from csrc/ with nvcc, one
-              process per source, all started together, and prints the
-              build seconds and ptxas's report;
+              process per source, all started together, and K2/K3's
+              source as host C++ that counts operations (megastep_host.py,
+              g++) beside them; prints the build seconds and ptxas's report;
  3. kernels - K1 (csrc/lane_contact.cu) against its plain PyTorch version on
               the same card inputs, float32, at B = 1024: TactilePush
               (ground, cuboid), RollingBall 8x8 (sphere) and a hand-made
               cylinder scene, each with static and per-lane parameters; to
               1e-5 x the output's scale (the sums run in another order).
               K2 and K3 (csrc/megastep.cu) against theirs on TactilePush
-              contact states: float64 at B = 64, float32 with K2 at
-              B = 1024 and K3 at B = 128. Kernel and plain times at the
-              main path's shapes;
+              contact states: float64 at B = 64; float32 with K2 at
+              B = 1024 and K3 at B = 128, the kernel and the f32 plain
+              version each against the f64 plain version, and on resting
+              contact directly against the f32 plain version. Kernel and
+              plain times at the main path's shapes, bounds from the
+              operations counted at the timed run's inputs;
  4. slice   - slice 1 through its entry points: a TactilePush
               tactile_flatten forward policy rollout at B = 1024 on the lanes
               stepper (``rebuild_solver(mega=False)``; DiagGaussianActor
@@ -67,28 +71,25 @@ ACTOR_CFG = {"actor_mlp": {"layer_sizes": [64, 64], "activation": "elu",
 # frame transform, relative velocity and SDF; +3 for a tactile row
 K1_FLOPS_PER_POINT = {-1: 107, 0: 185, 1: 178, 2: 160}
 K1_TOL = 1e-5
-# arithmetic operations per lane of K2/K3's units of work on TactilePush
-# (n = 7), counted by running csrc/megastep.cu's device code on the host with
-# an operation-counting scalar (python -m
-# tactilesimulation_tpu_torch.ops.host_kernels); every +, -, *, /, sqrt, sin,
-# cos, abs, max, min of every dual level counts one
-K23_OPS = {"momentum": 64057, "residual": 180720, "column": 472800,
-           "momentum_column": 167293, "factor": 234, "solve": 91}
 # K2/K3 against their plain version. float64: the same algorithm in the same
 # order to round-off (measured 2e-13 on values, 1e-14 on gradients); the
 # chord's stop masks cannot flip at this precision.
 K23_F64_TOL = {"fwd": 1e-9, "bwd": 1e-7}
-# float32, on resting contact states (resting_contact), where the chord
-# converges: the kernel and the plain version sum in another order (the
-# plain version's index_add uses atomics on the card, so its round-off
-# varies from run to run), and f32's stop rule (1e-4 x the first residual)
-# lets the two stop one sweep apart on a lane: K2's values agree to about
-# that rule (1.2e-4 of scale measured on the card), K3's gradients, whose
-# solves do not iterate, to round-off through J (1e-4 on the host build).
-# On contact_state's states the f32 chord does not converge within 8 sweeps
-# and round-off grows through up to 40 sweeps (1e-3 to 5e-3 of scale
-# measured on the card, varying between runs), so those states are held in
-# float64 only.
+# float32 on contact_state's states, where the f32 chord does not converge
+# within 8 sweeps (f32 and f64 also ridge J differently, 1e-7 against 1e-12)
+# and parts from f64 by up to 1.1e-1 of scale on K2, 1.4e-2 on K3: the
+# kernel and the f32 plain version are each held to the f64 plain version,
+# and the kernel's error (max abs over scale) must stay within 1.25x the
+# plain version's plus 1e-5 of scale. Both are f32 runs of one algorithm
+# that differ in summation order (and the plain version's index_add, whose
+# atomics vary from run to run); on the card the two errors agreed to
+# three digits (ratio 1.000), so a kernel that adds a quarter of f32's own
+# error fails.
+K23_F32_VS_F64 = (1.25, 1e-5)
+# float32, directly against the f32 plain version, on resting contact
+# (resting_contact), where the chord converges: f32's stop rule (1e-4 x the
+# first residual) lets the two stop one sweep apart on a lane (1.2e-4 of
+# scale measured on the card on K2's vs).
 K23_F32_TOL = {"fwd": 1e-3, "fwd_cos": 0.99999, "bwd": 1e-3,
                "bwd_cos": 0.99999}
 # card (mega, f32) against CPU (lanes, f64) BPTT gradient (see cross())
@@ -139,15 +140,19 @@ def contact_state(name, q_init, B, seed):
     return q, 0.1 * rng.randn(n, B)
 
 
-def resting_contact(q_init, B, seed):
-    """TactilePush (q, v) float64 (n, B) at rest with the pad pressed
-    0.1-1 mm into the box and the box up to 0.3 mm into the ground: contact
-    in every lane, and the chord converges from the entry factor."""
+def resting_contact(q_init, B, seed, pad_speed=0.0):
+    """TactilePush (q, v) float64 (n, B) with the pad pressed 0.1-1 mm into
+    the box and the box up to 0.3 mm into the ground, at rest but for the
+    pad's velocity (``pad_speed`` x a standard normal draw per coordinate):
+    contact in every lane, and the chord converges from the entry
+    factor."""
     rng = np.random.RandomState(seed)
     q = np.repeat(q_init[:, None], B, axis=1)
     q[1] = rng.uniform(0.0001, 0.001, B)
     q[5] = rng.uniform(-0.0003, 0.0, B)
-    return q, np.zeros_like(q)
+    v = np.zeros_like(q)
+    v[:3] = pad_speed * rng.randn(3, B)
+    return q, v
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -198,15 +203,19 @@ class Smoke:
     # 2 -------------------------------------------------------------------
     def build(self):
         from tactilesimulation_tpu_torch.ops import _build
+        import megastep_host
         libs = sorted({k["lib"] for k in KERNELS})
         t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(len(libs)) as ex:
+        with concurrent.futures.ThreadPoolExecutor(len(libs) + 1) as ex:
             futs = {lib: ex.submit(_build.build, lib, ("-Xptxas", "-v"),
                                    True) for lib in libs}
+            # K2/K3's source as host C++ that counts operations (bounds)
+            counter = ex.submit(megastep_host.Counter)
             for lib, fut in futs.items():
                 fut.result()
-        print(f"built {len(libs)} librar(ies) for {len(KERNELS)} kernels in "
-              f"{time.perf_counter() - t0:.2f} s")
+            self.counter = counter.result()
+        print(f"built {len(libs)} librar(ies) for {len(KERNELS)} kernels and "
+              f"the operation counter in {time.perf_counter() - t0:.2f} s")
         for lib in libs:
             print(f"  {lib}: nvcc {_build.build_seconds[lib]:.2f} s")
             for line in _build.build_log[lib].splitlines():
@@ -307,29 +316,31 @@ class Smoke:
                 "bytes" if t_bytes >= t_ops else "operations", t_bytes, t_ops)
 
     def megastep_kernels(self, dev):
-        """K2 and K3 against their plain version (f64 and f32), and their
-        times at B = 1024 beside their bounds."""
+        """K2 and K3 against their plain version (f64, f32), and their times
+        at B = 1024 beside their bounds."""
         from tactilesimulation_tpu_torch.model import task_scenes
         from tactilesimulation_tpu_torch.ops import megastep
         struct, model = task_scenes.tactile_push()
         n, nu, K = struct.ndof_q, struct.ndof_u, 5
+        ops = {dt: megastep.MegaStep(struct, model.to(dev, dt), K, 8)
+               for dt in (torch.float64, torch.float32)}
 
-        def case(dtype, B, seed, state=contact_state):
+        def case(B, seed, state=contact_state):
             if state is contact_state:
                 q, v = contact_state("tactile_push", model.q_init.numpy(), B,
                                      seed=seed)
             else:
                 q, v = state(model.q_init.numpy(), B, seed)
             rng = np.random.RandomState(seed + 1)
-            u = 0.5 * rng.randn(nu, B)
-            g = rng.randn(4, n, B)
             t = lambda a: torch.as_tensor(np.ascontiguousarray(a),
-                                          dtype=dtype, device=dev)
-            return t(q), t(v), t(u), [t(x) for x in g]
+                                          dtype=torch.float64, device=dev)
+            return [t(q), t(v), t(0.5 * rng.randn(nu, B))] + [
+                t(x) for x in rng.randn(4, n, B)]
 
         def errs(got, want):
             out = []
             for a, b in zip(got, want):
+                a, b = a.double(), b.double()
                 scale = float(b.abs().max())
                 err = float((a - b).abs().max())
                 cos = float((a * b).sum() / (a.norm() * b.norm()))
@@ -338,21 +349,40 @@ class Smoke:
                 out.append((err, err / scale, cos))
             return out
 
-        def check(name, got, want, tol, cos_min=None):
-            res = errs(got, want)
+        def show(name, res, tol=None, cos_min=None):
             print(f"  {name}: " + " ".join(
                 f"|err| {e:.2e} rel {r:.2e} cos {c:.9f};" for e, r, c in res)
-                + f" (tol rel {tol:g}" + (f", cos {cos_min}" if cos_min
-                                          else "") + ")")
-            for e, r, c in res:
-                if r > tol or (cos_min is not None and c < cos_min):
-                    raise AssertionError(f"{name} disagrees with its plain "
-                                         "version")
-            return max(e for e, _, _ in res)
+                + (f" (tol rel {tol:g}" if tol is not None else "")
+                + (f", cos {cos_min}" if cos_min else "")
+                + (")" if tol is not None else ""))
 
+        def check(name, got, want, tol, cos_min=None):
+            res = errs(got, want)
+            show(name, res, tol, cos_min)
+            if any(r > tol or (cos_min is not None and c < cos_min)
+                   for _, r, c in res):
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     "version")
+
+        def three_way(name, kernel, plain32, plain64):
+            """The f32 kernel and the f32 plain version, each against the
+            f64 plain version: the kernel's error must stay within
+            K23_F32_VS_F64 of the plain version's (see there)."""
+            k, p = errs(kernel, plain64), errs(plain32, plain64)
+            show(f"{name} f32 kernel vs f64 plain", k)
+            show(f"{name} f32 plain  vs f64 plain", p)
+            mult, floor = K23_F32_VS_F64
+            for (_, rk, _), (_, rp, _) in zip(k, p):
+                if rk > mult * rp + floor:
+                    raise AssertionError(
+                        f"{name}: f32 kernel {rk:.3e} of scale from f64, "
+                        f"plain f32 {rp:.3e} (tol {mult:g} x + {floor:g})")
+            return max(e for e, _, _ in errs(kernel, plain32))
+
+        f32 = lambda xs: [x.float().contiguous() for x in xs]
         # float64 at B = 64: the algorithm, to round-off
-        op = megastep.MegaStep(struct, model.to(dev, torch.float64), K, 8)
-        q, v, u, g = case(torch.float64, 64, 0)
+        op = ops[torch.float64]
+        q, v, u, *g = case(64, 0)
         want = op.fwd_ref(q, v, u)
         check("K2 f64 B=64 (q, qdot, vs)", op.run_fwd(q, v, u), want,
               K23_F64_TOL["fwd"])
@@ -360,62 +390,77 @@ class Smoke:
               op.run_bwd(q, v, u, want[2], *g),
               op.bwd_ref(q, v, u, want[2], *g), K23_F64_TOL["bwd"])
 
-        # float32: K2 at B = 1024 (the main path's width), K3 at B = 128
-        op = megastep.MegaStep(struct, model.to(dev, torch.float32), K, 8)
-        q, v, u, g = case(torch.float32, B_MAIN, 0, resting_contact)
+        # float32 at the main path's width on the same kind of states, held
+        # against float64: K2 at B = 1024, K3 at B = 128
+        op = ops[torch.float32]
+        x64 = case(B_MAIN, 0)
+        q, v, u, *g = f32(x64)
         got = op.run_fwd(q, v, u)
         nres = op.last_residuals.clone()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = op.fwd_ref(q, v, u)
+        plain = op.fwd_ref(q, v, u)
         torch.cuda.synchronize()
         k2_plain = (time.perf_counter() - t0) * 1e3
-        k2_err = check(f"K2 f32 B={B_MAIN} (q, qdot, vs)", got, want,
-                       K23_F32_TOL["fwd"], K23_F32_TOL["fwd_cos"])
+        ref = ops[torch.float64].fwd_ref(*x64[:3])
+        k2_err = three_way(f"K2 B={B_MAIN} (q, qdot, vs)", got, plain, ref)
         k2_ms = cuda_ms(lambda: op.run_fwd(q, v, u), 5, warmup=1)
         Bb = 128
-        sub = lambda a: a[..., :Bb].contiguous()
-        args = [sub(a) for a in (q, v, u, want[2])] + [sub(a) for a in g]
-        k3_err = check(f"K3 f32 B={Bb} (g_q0, g_qdot0, g_u)",
-                       op.run_bwd(*args), op.bwd_ref(*args),
-                       K23_F32_TOL["bwd"], K23_F32_TOL["bwd_cos"])
-        k3_ms = cuda_ms(lambda: op.run_bwd(q, v, u, want[2], *g), 3,
-                        warmup=1)
+        y64 = [a[..., :Bb].contiguous() for a in x64[:3] + [ref[2]] + x64[3:]]
+        y32 = f32(y64)
+        k3_err = three_way(f"K3 B={Bb} (g_q0, g_qdot0, g_u)",
+                           op.run_bwd(*y32), op.bwd_ref(*y32),
+                           ops[torch.float64].bwd_ref(*y64))
+        vs32 = ref[2].float().contiguous()
+        k3_ms = cuda_ms(lambda: op.run_bwd(q, v, u, vs32, *g), 3, warmup=1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        op.bwd_ref(q, v, u, want[2], *g)
+        op.bwd_ref(q, v, u, vs32, *g)
         torch.cuda.synchronize()
         k3_plain = (time.perf_counter() - t0) * 1e3
+        # and on resting contact, where the f32 chord converges: directly
+        # against the f32 plain version
+        q, v, u, *g = f32(case(B_MAIN, 0, resting_contact))
+        got = op.run_fwd(q, v, u)
+        want = op.fwd_ref(q, v, u)
+        check(f"K2 f32 B={B_MAIN} resting (q, qdot, vs)", got, want,
+              K23_F32_TOL["fwd"], K23_F32_TOL["fwd_cos"])
+        sub = [a[..., :Bb].contiguous() for a in (q, v, u, want[2], *g)]
+        check(f"K3 f32 B={Bb} resting (g_q0, g_qdot0, g_u)",
+              op.run_bwd(*sub), op.bwd_ref(*sub), K23_F32_TOL["bwd"],
+              K23_F32_TOL["bwd_cos"])
 
-        # bounds from this run's inputs: bytes in and out once, operations
-        # counted per lane (K2's chord stops early on converged lanes)
+        # bounds from the timed run's inputs: bytes in and out once, the
+        # operations its data needs (megastep_host.py), K2's residual
+        # evaluations as the kernel counted them per lane
+        import megastep_host
+        t0 = time.perf_counter()
+        need = megastep_host.needed(self.counter.units(
+            op.tables, *(a.cpu().numpy() for a in x64[:3])), n)
+        k2_ops, k3_ops = megastep_host.k2_k3_ops(need, n, K,
+                                                 nres.cpu().numpy())
+        print(f"  operations per lane counted at this run's inputs in "
+              f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
+                  f"{k} {float(np.mean(c)):.0f}" for k, c in need.items()))
         tables = sum(4 * t.numel() for t in op.tables.packed(dev,
                                                              torch.float32))
-        o = K23_OPS
-        evals = int(nres.sum())
-        k2_ops = (B_MAIN * ((K + 1) * o["momentum"] + n * o["column"]
-                            + o["factor"])
-                  + evals * o["residual"] + (evals - B_MAIN * K) * o["solve"])
         k2_bytes = tables + 4 * B_MAIN * (2 * n + nu + 2 * n + K * n + 1)
-        k3_ops = B_MAIN * K * (o["momentum"] + 2 * n * o["column"]
-                               + 2 * n * o["momentum_column"] + o["factor"]
-                               + o["solve"])
         k3_bytes = tables + 4 * B_MAIN * (2 * n + nu + K * n + 4 * n
                                           + 2 * n + nu)
-        for key, ms, plain, err, bts, ops in (
+        for key, ms, plain_ms, err, bts, nops in (
                 ("K2", k2_ms, k2_plain, k2_err, k2_bytes, k2_ops),
                 ("K3", k3_ms, k3_plain, k3_err, k3_bytes, k3_ops)):
-            bound, by, t_b, t_o = self._bound(bts, ops)
+            bound, by, t_b, t_o = self._bound(bts, nops)
             print(f"  {key} TactilePush f32 B={B_MAIN}: kernel {ms:.3f} ms, "
-                  f"plain {plain:.1f} ms; moves {bts} B ({t_b:.5f} ms), "
-                  f"{ops:.4e} op ({t_o:.4f} ms); bound {bound:.4f} ms by "
+                  f"plain {plain_ms:.1f} ms; moves {bts} B ({t_b:.5f} ms), "
+                  f"{nops:.4e} op ({t_o:.4f} ms); bound {bound:.4f} ms by "
                   f"{by}; {100 * bound / ms:.2f} % of it [{self.card}]")
             self.kernel_rows.setdefault(key, {}).update(
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=None)
         print(f"  K2 residual evaluations per lane: mean "
-              f"{evals / B_MAIN:.2f} of {K * 9} (chord stops early on "
-              f"converged lanes)")
+              f"{float(nres.float().mean()):.2f} of {K * 9} (chord stops "
+              f"early on converged lanes)")
 
     # 4 -------------------------------------------------------------------
     def slice(self, dev):

@@ -23,8 +23,11 @@
 //   dr/du             the motor rows through the clip; dr/dp_base = -I;
 //   momentum pullback 2n columns of p(q, qd) on Dual<T>.
 // The contact law is contact_point.cuh (shared with K1); the primitive
-// side's torque uses the application point held fixed in the primitive's
-// frame (detach() in sim/lanes.contact_terms), as the plain version does.
+// side's torque is taken at the contact point x itself, which moves with
+// both bodies under differentiation, as in the JAX megastep
+// (_SceneConst.contact_wrenches) and the plain version
+// (sim/lanes.contact_terms(moving_point=True)): J and the adjoint are then
+// the derivatives of the residual's value.
 //
 // Layout. Per-lane arrays are batch-last, (rows, B) row-major; one thread
 // per lane; blocks of 32 threads, so B = 1024 spreads over 32 SMs instead
@@ -35,25 +38,30 @@
 // (broadcast). All per-lane state lives in registers and local memory.
 //
 // Work and bound on TactilePush (n = 7, J = NB = 7, 204 contact points,
-// frame_skip K = 5, max_iter 8), per lane, counted by running this code on
-// the host with an operation-counting scalar (ops/host_kernels.py; every
-// +, -, *, /, sqrt, sin, cos, abs, max, min at every dual level):
-//   momentum 64,057; residual value 180,720; residual column 472,800;
-//   momentum column 167,293; ridged factor 234; solve 91;
-//   K2 = 7 columns + 6 momenta + (K + sweeps run) values and solves:
-//        1.18e7 at 8 sweeps per substep (fewer where the chord converges);
-//   K3 = K x (14 columns + 14 momentum columns + momentum + factor
-//        + solve): 4.51e7.
+// frame_skip K = 5, max_iter 8), per lane. The operations the function
+// needs, counted by running this code on the host with an
+// operation-counting scalar (megastep_host.py; every +, -, *, /, sqrt, sin,
+// cos, abs, max, min), as a multi-tangent jet would do them: the primal
+// once per evaluation, each direction's tangent work once. The sweeps
+// below recompute the primal in every direction; that repeated work is not
+// counted. On contact_state's states:
+//   momentum 42,067; residual value 117,787; residual column 194,300;
+//   momentum column 70,320; ridged factor 234; solve 91;
+//   K2 = 7 columns + K momenta + (K + sweeps run) values and solves:
+//        6.9e6 at 8 sweeps per substep (fewer where the chord converges);
+//   K3 = K x (momentum + value + 14 columns + 14 momentum columns + factor
+//        + solve): 1.9e7.
 // In and out (f32): K2 reads q, qd, u (20 values) and writes q, qd, vs and
 // its residual count (50), 280 B per lane; K3 reads q, qd, u, vs and four
 // cotangents (83) and writes 20, 412 B. At B = 1024 that is ~0.3-0.4 MB
-// (~0.1 us at 3.35 TB/s) against 1.2e10 operations for K2 (0.18 ms at
-// 67 TFLOP/s fp32) and 4.6e10 for K3 (0.69 ms): both are bound by
-// operations. One thread per lane leaves most of the card idle at
-// B = 1024 (32 warps on 132 SMs) and keeps each thread's chain of dual
-// operations serial, and the nested duals spill to local memory; spreading
-// the Jacobian columns over threads is the first step towards that bound,
-// and later work.
+// (~0.1 us at 3.35 TB/s) against 7.0e9 operations for K2 (0.11 ms at
+// 67 TFLOP/s fp32) and 2.0e10 for K3 (0.30 ms): both are bound by
+// operations (chip_smoke.py computes each bound from its run's inputs).
+// One thread per lane leaves most of the card idle at B = 1024 (32 warps
+// on 132 SMs), keeps each thread's chain of dual operations serial, repeats
+// the primal in every sweep, and the nested duals spill to local memory;
+// spreading the Jacobian columns over threads is the first step towards
+// that bound, and later work.
 
 #include <cuda_runtime.h>
 
@@ -414,8 +422,7 @@ __device__ void joint_twists(const Scene<T>& sc, S (*w)[3],
   }
 }
 
-// -- contact wrenches (K1's law per point; primitive torque at the point
-//    held in the primitive's frame) -------------------------------------------
+// -- contact wrenches (K1's law per point; -f and -x x f on the primitive) ----
 template <class S, class T>
 __device__ __noinline__ void contact_wrenches(
     const Scene<T>& sc, S (*jp)[3], S (*jq)[4], S (*bp)[3],
@@ -430,13 +437,10 @@ __device__ __noinline__ void contact_wrenches(
     const int row0 = sg[0], np = sg[1], j = sg[2], pb = sg[3], pj = sg[4];
     const int gt = sg[5];
     const T* prm = sc.params + 4 * sg[6];
-    S R[3][3], cc[3], qp[4], qpc[4];
+    S R[3][3], cc[3];
     const T* sz = sc.bsize;
     if (gt != kGround) {
-      for (int i = 0; i < 4; ++i) qp[i] = bq[pb][i];
-      qpc[0] = qp[0];
-      for (int i = 1; i < 4; ++i) qpc[i] = -qp[i];
-      quat_to_mat(qp, R);
+      quat_to_mat(bq[pb], R);
       for (int i = 0; i < 3; ++i) cc[i] = bp[pb][i];
       sz = sc.bsize + 3 * pb;
     } else {
@@ -444,8 +448,7 @@ __device__ __noinline__ void contact_wrenches(
         for (int i = 0; i < 3; ++i) R[a][i] = zero;
       for (int i = 0; i < 3; ++i) cc[i] = zero;
     }
-    S fs[3] = {zero, zero, zero}, ts[3] = {zero, zero, zero},
-      tp[3] = {zero, zero, zero};
+    S fs[3] = {zero, zero, zero}, ts[3] = {zero, zero, zero};
 #pragma unroll 1
     for (int k = 0; k < np; ++k) {
       S x[3], vr[3], ox[3], phi, nrm[3], f[3], xf[3];
@@ -464,23 +467,13 @@ __device__ __noinline__ void contact_wrenches(
         fs[i] = fs[i] + f[i];
         ts[i] = ts[i] + xf[i];
       }
-      if (gt != kGround) {
-        S dx[3], xl[3], xa[3], xaf[3];
-        for (int i = 0; i < 3; ++i) dx[i] = x[i] - cc[i];
-        qrot(qpc, dx, xl);
-        const T xil[3] = {pv(xl[0]), pv(xl[1]), pv(xl[2])};
-        qrot(qp, xil, xa);
-        for (int i = 0; i < 3; ++i) xa[i] = cc[i] + xa[i];
-        cross3(xa, f, xaf);
-        for (int i = 0; i < 3; ++i) tp[i] = tp[i] + xaf[i];
-      }
     }
     for (int i = 0; i < 3; ++i) {
       F[j][i] = F[j][i] + fs[i];
       Tau[j][i] = Tau[j][i] + ts[i];
       if (gt != kGround) {
         F[pj][i] = F[pj][i] - fs[i];
-        Tau[pj][i] = Tau[pj][i] - tp[i];
+        Tau[pj][i] = Tau[pj][i] - ts[i];
       }
     }
   }
@@ -808,7 +801,7 @@ bwd_kernel(const int* __restrict__ itab, const T* __restrict__ ftab, int K,
 }  // namespace
 
 // Everything above is device code that also compiles as host C++ (with
-// stand-ins for the CUDA qualifiers): ops/host_kernels.py builds it so to
+// stand-ins for the CUDA qualifiers): megastep_host.py builds it so to
 // run it against the plain version on a CPU and to count its arithmetic.
 // The launches below need nvcc.
 #ifdef __CUDACC__

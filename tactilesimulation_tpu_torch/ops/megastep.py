@@ -19,7 +19,11 @@ Routes: a CUDA tensor goes to ``csrc/megastep.cu`` (nvcc at first use,
 ctypes; float32 and float64 instances) and anything the kernels do not take
 raises; a CPU tensor goes to the plain PyTorch version (``fwd_ref``,
 ``bwd_ref``), which is ``sim/lanes.py``'s residual, chord and exact adjoint
-with the megastep's tolerance floor max(solver_tol, 1e-7) in every dtype.
+with the megastep's tolerance floor max(solver_tol, 1e-7) in every dtype
+and its contact-torque convention (``moving_point``: the primitive side's
+torque at the moving contact point, so J and the adjoint are the
+derivatives of the residual's value; the lanes stepper holds the point
+fixed in the primitive's frame, as the JAX package's lanes path does).
 
 Gradients reach the state and the controls; the model is a constant of the
 step (no model cotangents, as on the JAX package's mega path), and the step
@@ -157,7 +161,7 @@ def _inputs(struct, model, q, qd, u):
 
 def fwd_ref(struct, model, frame_skip, max_iter, tol, q, qd, u):
     """K2's plain version: (q_K, qd_K, vs (K, n, B))."""
-    residual = lanes.make_residual(struct)
+    residual = lanes.make_residual(struct, moving_point=True)
     with torch.no_grad():
         lu = lanes.make_chord_lu(residual, _inputs(struct, model, q, qd, u),
                                  qd)
@@ -173,7 +177,7 @@ def fwd_ref(struct, model, frame_skip, max_iter, tol, q, qd, u):
 def bwd_ref(struct, model, q0, qd0, u, vs, gq, gqd, gqp, gqdp):
     """K3's plain version: (g_q0, g_qd0, g_u) by the exact adjoint of each
     substep (``lanes.chord_adjoint``) and autograd through momentum."""
-    residual = lanes.make_residual(struct)
+    residual = lanes.make_residual(struct, moving_point=True)
     h = model.h.to(q0.dtype)
     K = vs.shape[0]
     qs, qds = [q0], [qd0]
@@ -367,9 +371,10 @@ class _MegaStepFn(torch.autograd.Function):
 
 def build_env_step_mega(struct, model, frame_skip: int, *, max_iter: int = 8):
     """env_step(model, state, u) -> state' through K2/K3, a drop-in for
-    ``lanes.build_env_step(struct, frame_skip, max_iter=max_iter)`` with the
-    megastep's tolerance floor. ``model`` is baked in: the step raises if it
-    is handed another model object (checked by identity, no device sync)."""
+    ``lanes.build_env_step(struct, frame_skip, max_iter=max_iter,
+    moving_point=True)`` with the megastep's tolerance floor. ``model`` is
+    baked in: the step raises if it is handed another model object (checked
+    by identity, no device sync)."""
     op = MegaStep(struct, model, frame_skip, max_iter)
 
     def env_step(model_arg, state: lanes.LaneSimState, u):

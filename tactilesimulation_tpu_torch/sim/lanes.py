@@ -590,11 +590,16 @@ def _add_cols(acc, idx, val):
     return acc.index_add(1, idx, val)
 
 
-def contact_terms(struct: Structure, model: Model, q, v):
+def contact_terms(struct: Structure, model: Model, q, v,
+                  moving_point: bool = False):
     """(Q (n, B), tac_force (3, Mtot, B) world marker forces): the plain
     group loop, the oracle of the fused path. Application points are held
     fixed in their local frames under differentiation (``.detach()`` on the
-    local coordinates)."""
+    local coordinates), the JAX package's ``lanes`` convention. With
+    ``moving_point`` the primitive side's torque is taken at the contact
+    point itself, which moves with both bodies under differentiation: the
+    JAX package's ``megastep`` convention, and the derivative of the
+    residual's value (the two agree in value)."""
     groups = struct.contact_groups
     ntac = len(struct.tac_joint)
     dtype = q.dtype
@@ -651,10 +656,13 @@ def contact_terms(struct: Structure, model: Model, q, v):
         F_acc = _add_cols(F_acc, gjoint, f)
         Tau_acc = _add_cols(Tau_acc, gjoint, cross(x_app_g, f))
         if g.gtype != contact.GROUND:
-            qp = bquat[:, gt.prim_body]
-            xi_p = quat_rotate(quat_conj(qp),
-                               x_eff - bp[:, gt.prim_body]).detach()
-            x_app_p = bp[:, gt.prim_body] + quat_rotate(qp, xi_p)
+            if moving_point:
+                x_app_p = x_eff
+            else:
+                qp = bquat[:, gt.prim_body]
+                xi_p = quat_rotate(quat_conj(qp),
+                                   x_eff - bp[:, gt.prim_body]).detach()
+                x_app_p = bp[:, gt.prim_body] + quat_rotate(qp, xi_p)
             F_acc = _add_cols(F_acc, gt.pj, -f)
             Tau_acc = _add_cols(Tau_acc, gt.pj, cross(x_app_p, -f))
 
@@ -755,8 +763,9 @@ def tactile_field_fused(struct: Structure, model: Model, q, v, pw, pw_meta):
     return _sensor_frame(struct, model, q, tac_force)
 
 
-def applied_forces(struct: Structure, model: Model, q, v, u):
-    Q_contact, tac_force = contact_terms(struct, model, q, v)
+def applied_forces(struct: Structure, model: Model, q, v, u,
+                   moving_point: bool = False):
+    Q_contact, tac_force = contact_terms(struct, model, q, v, moving_point)
     Q = (joint_spring_forces(model, q, v)
          + motor_forces(struct, model, q, v, u)
          + Q_contact)
@@ -842,11 +851,17 @@ class LaneSimState(NamedTuple):
     t: torch.Tensor        # (B,) int32
 
 
-def make_residual(struct: Structure, fused_pw=None):
+def make_residual(struct: Structure, fused_pw=None,
+                  moving_point: bool = False):
     """r(v') = p(q', v') - p_base - gamma (dL/dq + Q), q' = q_base + gamma v'.
 
     ``fused_pw = (pw, pw_meta)`` routes the contact chain through the
-    pair-wrench op (``ops/lane_contact.py``)."""
+    pair-wrench op (``ops/lane_contact.py``); ``moving_point`` picks the
+    megastep's contact-torque convention (``contact_terms``), plain path
+    only."""
+    if fused_pw is not None and moving_point:
+        raise ValueError("moving_point runs on the plain contact path only")
+
     def residual(v_new, inputs: StepInputs):
         qn = inputs.q_base + inputs.gamma * v_new
         dLdq, p_new = el_terms(struct, inputs.model, qn, v_new)
@@ -857,7 +872,8 @@ def make_residual(struct: Structure, fused_pw=None):
                  + motor_forces(struct, inputs.model, qn, v_new, inputs.u)
                  + Qc)
         else:
-            Q, _ = applied_forces(struct, inputs.model, qn, v_new, inputs.u)
+            Q, _ = applied_forces(struct, inputs.model, qn, v_new, inputs.u,
+                                  moving_point)
         return p_new - inputs.p_base - inputs.gamma * (dLdq + Q)
     return residual
 
@@ -987,7 +1003,7 @@ def chord_solve(residual_fn, max_iter, tol, inputs: StepInputs, v_guess, lu):
 
 
 def build_env_step(struct: Structure, frame_skip: int, *, max_iter: int = 0,
-                   fused_pw=None):
+                   fused_pw=None, moving_point: bool = False):
     """``frame_skip`` implicit BDF1 substeps under one held control, with ONE
     chord factor per env step (the JAX package's ``refresh=0``) and the
     exact IFT adjoint (``bwd_mode='exact'``).
@@ -995,11 +1011,12 @@ def build_env_step(struct: Structure, frame_skip: int, *, max_iter: int = 0,
     env_step(model, state, u) -> state', differentiable w.r.t. the state and
     ``u``. ``max_iter`` overrides the scene's chord budget;
     ``fused_pw = (pw, meta)`` from ``ops.lane_contact.make_pair_wrenches``
-    routes contact through K1.
+    routes contact through K1; ``moving_point`` takes the megastep's
+    contact-torque convention (``contact_terms``).
     """
     if struct.integrator.upper() != "BDF1":
         raise ValueError(f"{struct.integrator}: only BDF1 is ported")
-    residual_fn = make_residual(struct, fused_pw)
+    residual_fn = make_residual(struct, fused_pw, moving_point)
     miter = max_iter or struct.solver_max_iter
 
     def env_step(model: Model, state: LaneSimState, u):

@@ -7,6 +7,9 @@ float64 on the CPU.
   the same contact-active state and v*, to rtol 1e-8 on the u, q_base and
   p_base cotangents (both are the same linear algebra on residual graphs
   that agree to 1e-9, tests/test_torch_lanes.py);
+- the exact adjoint of one implicit solve at a pad-on-box state against
+  central finite differences of its Newton-converged solution, in both
+  contact-torque conventions (below);
 - the env step's gradient w.r.t. (q0, qd0, u) against central finite
   differences of the port's own forward (JAX's env step is not
   differentiated here: its CPU compile alone takes minutes).
@@ -17,12 +20,18 @@ the at-solution adjoint is the derivative of the exact solution. FD and
 adjoint therefore agree to about that level, and the test holds them to
 1e-5 relative, with a 20-sweep budget so that both sides converge alike.
 
-The FD check runs with the box pressed into the ground and the pad off the
-box. Where a contact has a primitive body (pad on box), the residual's
-pullback holds the primitive side's application point fixed in the
-primitive's frame (the JAX package's adjoint convention, ``stop_gradient``
-in ``lanes.contact_terms``), so there the adjoint is not the derivative of
-the forward map and FD measures something else (about 1e-1 apart).
+The env-step FD check runs with the box pressed into the ground and the pad
+off the box. Where a contact has a primitive body (pad on box), the lanes
+path's pullback holds the primitive side's application point fixed in the
+primitive's frame (the JAX package's lanes convention, ``stop_gradient`` in
+``lanes.contact_terms``): there its adjoint is not the derivative of the
+solution, and one implicit solve's FD parts from it by 2.6e-3 to 2.6e-1
+per lane. The
+megastep's convention (``moving_point``: the torque at the moving contact
+point, the JAX package's ``megastep``) is the derivative: FD agrees to the
+FD step's error (5e-8 measured). That check uses a solve converged by
+Newton, since at a pad-on-box state with controls the chord of an env
+step does not converge from its entry factor.
 """
 
 import jax
@@ -32,6 +41,7 @@ import pytest
 import torch
 
 from tactilesimulation_tpu.model import task_scenes as jax_scenes
+from chip_smoke import resting_contact
 from tactilesimulation_tpu.sim import lanes as jax_lanes
 from tactilesimulation_tpu_torch.model import task_scenes as torch_scenes
 from tactilesimulation_tpu_torch.ops import lane_contact as torch_lc
@@ -47,15 +57,11 @@ def scene():
     sj, mj = jax_scenes.tactile_push()
     st, mt = torch_scenes.tactile_push()
     # at rest, the pad pressed into the box and the box into the ground:
-    # contact is active in every lane and the chord converges from the
-    # entry factor (off-axis offsets or random velocities put the pad on
-    # the box's edge, where it does not within 30 sweeps)
+    # contact is active in every lane (off-axis offsets or random
+    # velocities put the pad on the box's edge)
+    q, v = resting_contact(np.asarray(mj.q_init), B, 4)
     rng = np.random.RandomState(4)
-    n = st.ndof_q
-    q = np.repeat(np.asarray(mj.q_init)[:, None], B, axis=1)
-    q[1] = rng.uniform(0.0001, 0.001, B)     # pad pressing on the box
-    q[5] = rng.uniform(-0.0003, 0.0, B)      # box pressing on the ground
-    v = np.zeros((n, B))
+    rng.uniform(size=2 * B)               # the state's draws, then controls
     u = 0.3 * rng.randn(st.ndof_u, B)
     return dict(sj=sj, mj=mj, st=st, mt=mt, q=q, v=v, u=u)
 
@@ -116,6 +122,62 @@ def adjoint_case(scene):
                       jnp.asarray(lu.numpy()), jnp.asarray(g))
     assert float(jnp.max(jnp.abs(gv))) == 0.0
     return it, v_star, g, want
+
+
+@pytest.fixture(scope="module")
+def solve_fd(scene, adjoint_case):
+    """Central FD of <g, v*(u, q_base, p_base)> per lane along two random
+    directions, v* converged by Newton (the residual's value is the same in
+    both conventions; the moving-point Jacobian is its derivative). The
+    step is 1e-7: at 1e-5 a step crosses a kink of the contact law (1e-2
+    apart on one lane), at 1e-7 the FD error is about 5e-8."""
+    st, mt = scene["st"], scene["mt"]
+    it, v_star, g, _ = adjoint_case
+    exact = torch_lanes.make_residual(st, moving_point=True)
+    rng = np.random.RandomState(12)
+    eps = 1e-7
+
+    def solve(d, sign):
+        x = torch_lanes.StepInputs(
+            model=mt, u=it.u + sign * eps * d[0],
+            q_base=it.q_base + sign * eps * d[1],
+            p_base=it.p_base + sign * eps * d[2], gamma=it.gamma)
+        v = v_star
+        for _ in range(3):
+            lu = torch_lanes.make_chord_lu(exact, x, v)
+            v = v - torch_lanes.gauss_solve(lu, exact(v, x))
+        assert float(torch.linalg.norm(exact(v, x), dim=0).max()) < 1e-11
+        return v
+
+    out = []
+    for _ in range(2):
+        d = [_t(rng.randn(*a.shape)) for a in (it.u, it.q_base, it.p_base)]
+        dv = solve(d, 1) - solve(d, -1)
+        out.append((d, torch.sum(_t(g) * dv, dim=0) / (2 * eps)))
+    return out
+
+
+# per lane, |adjoint - FD| / |FD|: the megastep's convention is the
+# derivative (FD agrees to the FD step's error); the lanes convention parts
+# from it, pinned so that the documents stay true
+@pytest.mark.parametrize("moving_point", [True, False],
+                         ids=["megastep", "lanes"])
+def test_chord_adjoint_conventions_against_fd(scene, adjoint_case, solve_fd,
+                                              moving_point):
+    it, v_star, g, _ = adjoint_case
+    bars = torch_lanes.chord_adjoint(
+        torch_lanes.make_residual(scene["st"], moving_point=moving_point),
+        it, v_star, _t(g))
+    gaps = []
+    for d, fd in solve_fd:
+        an = sum(torch.sum(b * x, dim=0) for b, x in zip(bars, d))
+        gaps += (torch.abs(an - fd) / torch.abs(fd)).tolist()
+    print(f"moving_point={moving_point}: |adjoint - FD| / |FD| per lane "
+          f"and direction: " + ", ".join(f"{x:.2e}" for x in gaps))
+    if moving_point:
+        assert max(gaps) <= 1e-6
+    else:
+        assert max(gaps) >= 1e-3
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])

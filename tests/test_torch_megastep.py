@@ -5,33 +5,41 @@
 - the plain residual and momentum (the port's ``sim/lanes.py``, which K2's
   plain version evaluates) against ``_SceneConst.residual`` / ``momentum``
   at rtol 1e-9, as tests/test_megastep.py::test_residual_parity;
+- the residual's derivative in the megastep's contact-torque convention
+  (``moving_point``) against ``_SceneConst.residual``'s JVP at a pad-on-box
+  state, rtol 1e-9; the lanes convention parts from it there;
 - the megastep ``autograd.Function`` through its CPU route (the plain
-  version) against the port's lanes env step: values to rtol 1e-6, because
-  the two stop the chord at different floors (megastep max(solver_tol,
-  1e-7) in every dtype, lanes max(solver_tol, 1e-12) = solver_tol = 1e-8
-  in f64; both also stop at 1e-7 |r0|), and gradients w.r.t. (q0, qd0, u)
-  to rtol 2e-6, as tests/test_megastep.py pins the JAX pair. The loss
-  reads q_prev and qdot_prev too;
+  version) against the port's lanes env step in the same convention: values
+  to rtol 1e-6, because the two stop the chord at different floors
+  (megastep max(solver_tol, 1e-7) in every dtype, lanes max(solver_tol,
+  1e-12) = solver_tol = 1e-8 in f64; both also stop at 1e-7 |r0|), and
+  gradients w.r.t. (q0, qd0, u) to rtol 2e-6, as tests/test_megastep.py
+  pins the JAX pair. The loss reads q_prev and qdot_prev too;
 - the step refuses a model other than the one it was built with;
 - the kernels' own source (csrc/megastep.cu, built as host C++ in float64
-  by ``ops/host_kernels.py``) against the plain version on contact states
+  by ``megastep_host.py``) against the plain version on contact states
   where the chord does and does not converge: K2 to 1e-9 and K3 to 1e-7
   of scale, the same bars as on the card (the same algorithm in another
-  summation order).
+  summation order);
+- the structure the operation count of K2/K3's bound assumes
+  (``megastep_host.py``: how many Lagrangians and residuals each sweeping
+  function of the CUDA source runs), so that the count cannot go stale.
 """
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import megastep_host
+from chip_smoke import contact_state, resting_contact
 from tactilesimulation_tpu.envs import tactile_push as jax_tp
 from tactilesimulation_tpu.ops import megastep as jax_mega
 from tactilesimulation_tpu_torch.model import task_scenes as torch_scenes
-from chip_smoke import contact_state
-from tactilesimulation_tpu_torch.ops import host_kernels, megastep
+from tactilesimulation_tpu_torch.ops import megastep
 from tactilesimulation_tpu_torch.sim import lanes as torch_lanes
 
 torch.set_num_threads(1)
@@ -61,17 +69,11 @@ def _close(got, want, rtol):
 
 
 def _resting_contact(mt, seed):
-    """The pad pressed into the box and the box into the ground, at rest:
-    contact active in every lane, and the chord converges from the entry
-    factor (tests/test_torch_adjoint.py)."""
-    rng = np.random.RandomState(seed)
-    q = np.repeat(mt.q_init.numpy()[:, None], B, axis=1)
-    q[1] = rng.uniform(0.0001, 0.001, B)
-    q[5] = rng.uniform(-0.0003, 0.0, B)
-    v = np.zeros_like(q)
-    v[:3] = 0.002 * rng.randn(3, B)
-    u = 0.3 * rng.randn(6, B)
-    return q, v, u
+    """The pad pressed into the box and moving slowly, the box pressed into
+    the ground: contact active in every lane, and the chord converges from
+    the entry factor; controls drawn beside."""
+    q, v = resting_contact(mt.q_init.numpy(), B, seed, pad_speed=0.002)
+    return q, v, 0.3 * np.random.RandomState(seed + 1).randn(6, B)
 
 
 def test_scene_tables_match_jax(scene):
@@ -111,11 +113,40 @@ def test_plain_residual_and_momentum_match_scene_const(scene):
     _close(r_t, r_j, 1e-9)
 
 
+def test_moving_point_residual_matches_jax_megastep(scene):
+    sc, st, mt = scene["sc"], scene["st"], scene["mt"]
+    q, v, u = _resting_contact(mt, 4)
+    rng = np.random.RandomState(2)
+    dv, dq = rng.randn(*v.shape), rng.randn(*q.shape)
+    p_base = torch_lanes.momentum(st, mt, _t(q), _t(v)).numpy()
+    _, want = jax.jvp(
+        lambda vv, qq: sc.residual(vv, jnp.asarray(u), qq,
+                                   jnp.asarray(p_base)),
+        (jnp.asarray(v), jnp.asarray(q)), (jnp.asarray(dv), jnp.asarray(dq)))
+    got = {}
+    for moving_point in (True, False):
+        vv, qq = _t(v).requires_grad_(), _t(q).requires_grad_()
+        r = torch_lanes.make_residual(st, moving_point=moving_point)(
+            vv, torch_lanes.StepInputs(model=mt, u=_t(u), q_base=qq,
+                                       p_base=_t(p_base),
+                                       gamma=mt.h.reshape(1, 1)))
+        rows = []
+        for i in range(st.ndof_q):
+            gv, gq = torch.autograd.grad(r[i].sum(), (vv, qq),
+                                         retain_graph=True)
+            rows.append((gv * _t(dv) + gq * _t(dq)).sum(0))
+        got[moving_point] = torch.stack(rows)
+    _close(got[True], want, 1e-9)
+    # the state exercises the pad-box torque, where the conventions part
+    assert float((got[False] - got[True]).abs().max()) > \
+        1e-6 * float(np.abs(want).max())
+
+
 def test_mega_step_matches_lanes_step(scene):
     st, mt = scene["st"], scene["mt"]
     q, v, u = (_t(a) for a in _resting_contact(mt, 4))
     mega = megastep.build_env_step_mega(st, mt, 5, max_iter=8)
-    ref = torch_lanes.build_env_step(st, 5, max_iter=8)
+    ref = torch_lanes.build_env_step(st, 5, max_iter=8, moving_point=True)
     w = [_t(a) for a in np.random.RandomState(9).randn(4, *q.shape)]
 
     def run(step):
@@ -151,11 +182,11 @@ def test_mega_step_refuses_another_model(scene):
 
 
 def test_kernel_source_matches_plain_version_on_host(scene):
-    if not host_kernels.available():
+    if not megastep_host.available():
         pytest.skip("needs g++ to build the kernels' device code as host C++")
     st, mt = scene["st"], scene["mt"]
     op = megastep.MegaStep(st, mt, 5, 8)
-    host = host_kernels.HostMegastep(op)
+    host = megastep_host.HostMegastep(op)
     rng = np.random.RandomState(6)
     q, v = contact_state("tactile_push", mt.q_init.numpy(), B, seed=1)
     rq, rv, ru = _resting_contact(mt, 4)
@@ -172,3 +203,30 @@ def test_kernel_source_matches_plain_version_on_host(scene):
     ref = op.bwd_ref(q, v, u, want[2], *g)
     for a, b in zip(host.run_bwd(q, v, u, want[2], *g), ref):
         _close(a, b.numpy(), 1e-7)
+
+
+def test_operation_count_structure(scene):
+    """The jet count of megastep_host.needed assumes how many Lagrangians
+    and residuals each sweeping function of csrc/megastep.cu runs."""
+    if not megastep_host.available():
+        pytest.skip("needs g++ to build the kernels' device code as host C++")
+    st, mt = scene["st"], scene["mt"]
+    q, v = contact_state("tactile_push", mt.q_init.numpy(), 2, seed=0)
+    u = 0.5 * np.random.RandomState(1).randn(st.ndof_u, 2)
+    units = megastep_host.Counter().units(scene["tables"], q, v, u,
+                                          executed=True)
+    c = {k: units[:, i] for i, k in enumerate(megastep_host.UNITS)}
+    n = st.ndof_q
+    np.testing.assert_array_equal(c["momentum_exec"], n * c["Lq1"])
+    np.testing.assert_array_equal(c["el_pair_exec"], 2 * n * c["Lr1"])
+    np.testing.assert_array_equal(c["columns_exec"], n * c["R1"] + 2 * n)
+    np.testing.assert_array_equal(c["momentum_column_exec"], n * c["Lq2"])
+    need = megastep_host.needed(units, n)
+    # each needed unit is positive and below what the sweeps execute
+    for k, ex in (("momentum", c["momentum_exec"]),
+                  ("residual", c["R0"]),
+                  ("momentum_column", c["momentum_column_exec"])):
+        assert np.all((need[k] > 0) & (need[k] < ex)), k
+    assert np.all((need["column"] > 0) & (need["column"] < c["R1"]))
+    k2, k3 = megastep_host.k2_k3_ops(need, n, 5, np.full(2, 45))
+    assert 0 < k2 < k3
