@@ -22,7 +22,11 @@ seconds):
               version each against the f64 plain version, and on resting
               contact directly against the f32 plain version. Kernel and
               plain times at the main path's shapes, bounds from the
-              operations counted at the timed run's inputs;
+              operations counted at the timed run's inputs. K4
+              (csrc/dense_contact.cu) against its plain version for the 4
+              primitive types, float32 and float64, at N = 40,000 and
+              40,001 points with some in contact; kernel and plain times at
+              the main path's shape (N = 40,000 against a sphere, f32);
  4. slice   - slice 1 through its entry points: a TactilePush
               tactile_flatten forward policy rollout at B = 1024 on the lanes
               stepper (``rebuild_solver(mega=False)``; DiagGaussianActor
@@ -37,7 +41,20 @@ seconds):
  6. cross   - 2 env steps at B = 16 on the card (mega path, float32)
               against the port on the CPU (lanes stepper and plain
               versions, float64): values, and the BPTT gradient w.r.t. the
-              actor's parameters.
+              actor's parameters;
+ 7. rolling - slice 3: (a) the RollingBall sim-speed path at its published
+              size (200 x 200 = 40,000 markers, BDF2, float32) through
+              ``Simulator.make_rollout_strided(5, fast_tactile=True)``, 350
+              steps (cut to 150 if the probe chunk predicts more than
+              ROLL_BUDGET_S): one K4 launch per tactile read, q finite, the
+              field nonzero by the end; steps/s, ms per step split into
+              factor, sweeps and query, the device's busy share over a
+              step; (b) the facade (``Simulation`` on the card): its
+              tactile vector equals the Simulator's query, one K4 launch;
+              (c) 10 steps with 2 reads from the pad pressed onto the
+              ball: the card in float64 (K4's double instance) against
+              the CPU in float64 (the plain path); the card in float32
+              held to the CPU float32 run's distance from float64.
 
 The line before the card's line is the kernel table as JSON; the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -94,6 +111,32 @@ K23_F32_TOL = {"fwd": 1e-3, "fwd_cos": 0.99999, "bwd": 1e-3,
                "bwd_cos": 0.99999}
 # card (mega, f32) against CPU (lanes, f64) BPTT gradient (see cross())
 CROSS_GRAD_TOL = {"rel": 1e-3, "cos": 0.99999}
+# K4 against its plain version: float64 runs the same arithmetic in the same
+# order, only nvcc's fused multiply-adds round differently (measured 6e-16 of
+# scale on the card); float32 the same at float's precision, where the
+# cancellation r - radius near the surface costs up to |x| x 2^-24 against
+# forces of order kn x penetration (measured 3.6e-7 of scale).
+K4_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# flops per point of K4, counted from csrc/dense_contact.cu: the force law 41
+# (as K1's), the ground plane 6; a primitive adds world to local 18, the
+# primitive's surface velocity and the relative velocity 18, the normal back
+# to world 15, and its SDF: sphere 11, cylinder 29, cuboid 36
+K4_FLOPS_PER_POINT = {-1: 47, 0: 128, 1: 121, 2: 103}
+K4_N = 40000             # RollingBall 200 x 200 markers against the sphere
+ROLL_RES, ROLL_STRIDE, ROLL_STEPS, ROLL_CUT = 200, 5, 350, 150
+ROLL_BUDGET_S = 150.0    # cut the rolling main path to ROLL_CUT past this
+# card against CPU over 10 RollingBall steps from the pad pressed onto the
+# ball (see rolling()), each max abs over the CPU float64 run's scale.
+# float64 on both: the same algorithm to round-off.
+ROLL_F64_TOL = {"q": 1e-9, "qdot": 1e-9, "tactile": 1e-8}
+# float32: in this window the light ball (3.4e-5 kg, 5e-9 kg m^2) is
+# squeezed out sideways at step 7, and there float32 parts from float64 as
+# a property of f32 itself: on the CPU alone, q by 2.0x its scale (the
+# ball's spin), qdot by 1.2x, the markers by 0.95x (the f32 chord stops at
+# 1e-4 x the first residual, whose norm the pad's dofs dominate). So, as
+# for K2/K3 (K23_F32_VS_F64), the card's float32 run is held to the CPU's
+# float32 run's distance from float64: within 1.25x of it plus 1e-5.
+ROLL_F32_VS_F64 = (1.25, 1e-5)
 MEGA = "tactilesimulation_tpu_torch/csrc/megastep.cu"
 KERNELS = [dict(name="K1 lane_contact", key="K1", lib="lane_contact",
                 route="cuda",
@@ -104,7 +147,11 @@ KERNELS = [dict(name="K1 lane_contact", key="K1", lib="lane_contact",
                 replaces="tactilesimulation_tpu/ops/megastep.py:799"),
            dict(name="K3 megastep adjoint", key="K3", lib="megastep",
                 route="cuda", source=MEGA,
-                replaces="tactilesimulation_tpu/ops/megastep.py:831")]
+                replaces="tactilesimulation_tpu/ops/megastep.py:831"),
+           dict(name="K4 dense_contact", key="K4", lib="dense_contact",
+                route="cuda",
+                source="tactilesimulation_tpu_torch/csrc/dense_contact.cu",
+                replaces="tactilesimulation_tpu/ops/dense_contact.py:174")]
 GD_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
                       "TactilePushExp", "cfg", "gd_tactile.yaml")
 
@@ -307,6 +354,7 @@ class Smoke:
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None)
         self.megastep_kernels(dev)
+        self.k4_kernels(dev)
 
     @staticmethod
     def _bound(bytes_moved, ops):
@@ -461,6 +509,72 @@ class Smoke:
         print(f"  K2 residual evaluations per lane: mean "
               f"{float(nres.float().mean()):.2f} of {K * 9} (chord stops "
               f"early on converged lanes)")
+
+    @staticmethod
+    def k4_inputs(gtype, N, dtype, dev, seed=0):
+        """Points scattered over a primitive (or the ground plane) with
+        random velocities: some inside it, some outside."""
+        from tactilesimulation_tpu_torch.ops import dense_contact
+        rng = np.random.default_rng(seed + 10 * (gtype + 1))
+        t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+        R, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        args = (t(rng.normal(scale=0.05, size=(N, 3))),
+                t(rng.normal(scale=0.2, size=(N, 3))),
+                (t(rng.normal(scale=0.01, size=3)), t(R)),
+                (t(rng.normal(size=3) * 0.1), t(rng.normal(size=3) * 0.5)),
+                t([0.06, 0.04, 0.05]), t([1e4, 5e2, 1.2, 1e3]),
+                (t(np.zeros(3)), t([0.0, 0.0, 1.0])))
+        return dense_contact, args
+
+    def k4_kernels(self, dev):
+        """K4 against its plain version (4 primitive types, f32 and f64,
+        N = 40,000 and 40,001), then kernel and plain times at the main
+        path's shape with the bound."""
+        names = {-1: "ground", 0: "cuboid", 1: "cylinder", 2: "sphere"}
+        worst = {}
+        for N in (K4_N, K4_N + 1):
+            for dtype in (torch.float32, torch.float64):
+                for g in (-1, 0, 1, 2):
+                    dc, args = self.k4_inputs(g, N, dtype, dev)
+                    got = dc.dense_point_contact(g, *args)
+                    want = dc.dense_point_contact_ref(g, *args)
+                    torch.cuda.synchronize()
+                    scale = float(want.abs().max())
+                    err = float((got - want).abs().max())
+                    active = int((want.abs().sum(dim=1) > 0).sum())
+                    tol = K4_TOL[dtype]
+                    if not (math.isfinite(err) and err <= tol * scale
+                            and 0 < active < N):
+                        raise AssertionError(
+                            f"K4 {names[g]} {dtype} N={N}: |err| {err:.3e} "
+                            f"> {tol:g} x {scale:.3e} or {active} in "
+                            "contact")
+                    worst[dtype] = max(worst.get(dtype, 0.0), err / scale)
+                    print(f"  K4 {names[g]:8s} {str(dtype)[6:]:7s} N={N}: "
+                          f"|err| {err:.3e} of scale {scale:.3e} (rel "
+                          f"{err / scale:.2e}, tol {tol:g}); {active} "
+                          "points in contact")
+        # the main path's shape: 40,000 markers against a sphere, float32
+        dc, args = self.k4_inputs(2, K4_N, torch.float32, dev)
+        scal = dc.pack_scalars(*args[2:])
+        x, xd = args[0], args[1]
+        max_abs = float((dc.dense_point_contact(2, *args)
+                         - dc.dense_point_contact_ref(2, *args)).abs().max())
+        k_ms = cuda_ms(lambda: dc._run_kernel(2, x, xd, scal), 500,
+                       warmup=20)
+        p_ms = cuda_ms(lambda: dc.dense_point_contact_ref(2, *args), 50)
+        bytes_moved = 4 * (3 * K4_N * 3 + scal.numel())
+        bound, by, t_b, t_o = self._bound(bytes_moved,
+                                          K4_N * K4_FLOPS_PER_POINT[2])
+        print(f"  K4 sphere f32 N={K4_N}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms; moves {bytes_moved} B ({t_b:.5f} ms), "
+              f"{K4_N * K4_FLOPS_PER_POINT[2]} flop ({t_o:.5f} ms); bound "
+              f"{bound:.5f} ms by {by}; worst rel err f32 "
+              f"{worst[torch.float32]:.2e}, f64 {worst[torch.float64]:.2e} "
+              f"[{self.card}]")
+        self.kernel_rows.setdefault("K4", {}).update(
+            max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+            bound_by=by, library_ms=None)
 
     # 4 -------------------------------------------------------------------
     def slice(self, dev):
@@ -763,6 +877,203 @@ class Smoke:
                 and cos >= CROSS_GRAD_TOL["cos"]):
             raise AssertionError("cross-check: BPTT gradient")
 
+    # 7 -------------------------------------------------------------------
+    @staticmethod
+    def pressed_ball(q_init, seed=0):
+        """RollingBall q, qdot (float64 numpy) with the pad's underside
+        0.3 mm into the ball's top, the ball slightly off centre and
+        moving."""
+        rng = np.random.RandomState(seed)
+        q = np.array(q_init, dtype=np.float64)
+        q[2] = -0.0153
+        q[3:5] = 2e-3 * rng.randn(2)
+        return q, 0.005 * rng.randn(q.shape[0])
+
+    def rolling(self, dev):
+        """Slice 3: the RollingBall sim-speed path, the facade, and the
+        card against the CPU."""
+        from tactilesimulation_tpu_torch.examples import rolling_ball_speed
+        from tactilesimulation_tpu_torch.model import task_scenes
+        from tactilesimulation_tpu_torch.ops import dense_contact
+        from tactilesimulation_tpu_torch.sim import integrators, simulation
+        struct, model64 = task_scenes.rolling_ball(resolution=ROLL_RES)
+        model = model64.to(dev, torch.float32)
+        sim = simulation.Simulator(struct, model)
+        if not (sim.points_major and sim._use_fast_tactile(model)):
+            raise AssertionError("the RollingBall path did not pick the "
+                                 "points-major step and the K4 query")
+        rollout = sim.make_rollout_strided(ROLL_STRIDE, remat=False,
+                                           fast_tactile=True)
+        print(f"  scene '{struct.name}': ndof_r={struct.ndof_q} ndof_u="
+              f"{struct.ndof_u} markers={struct.ndof_tactile // 3}, "
+              f"{len(struct.cp_joint) + len(struct.tac_joint)} points, "
+              f"{struct.integrator}, h={float(model64.h)}, solver_max_iter "
+              f"{struct.solver_max_iter}")
+
+        def chunks(steps):
+            return torch.as_tensor(rolling_ball_speed.control_chunks(
+                steps, struct.ndof_u), dtype=torch.float32, device=dev)
+
+        from tactilesimulation_tpu_torch.ops import tactile_query
+        step = sim.step
+
+        def timed(fn, n=3):
+            fn()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(n):
+                out = fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t1) / n * 1e3, out
+
+        def split(state, u, where):
+            """Where a step's time goes at ``state``."""
+            step_ms, _ = timed(lambda: step(model, state, u))
+            in_ms, inputs = timed(lambda: integrators.step_inputs(
+                struct, model, state, u))
+            tol = integrators.solver_tol(struct, torch.float32)
+            fac_ms, factor = timed(lambda: integrators.chord_factor(
+                step.residual_fn, inputs, state.qdot))
+            sw_ms, _ = timed(lambda: integrators.chord_sweeps(
+                step.residual_fn, struct.solver_max_iter, tol, inputs,
+                state.qdot, factor))
+            res_ms, _ = timed(lambda: step.residual_fn(state.qdot, inputs))
+            q_ms, _ = timed(lambda: tactile_query.tactile_field(
+                struct, model, state.q, state.qdot), 10)
+            k_ms = self.kernel_rows.get("K4", {}).get("ms", float("nan"))
+            print(f"  {where}: per step {step_ms:.1f} ms: BDF2 bases "
+                  f"(momenta) {in_ms:.1f} ms, J (one residual graph, "
+                  f"{struct.ndof_q} batched pullbacks) + LU {fac_ms:.1f} ms, "
+                  f"{struct.solver_max_iter} sweeps {sw_ms:.1f} ms (one "
+                  f"residual {res_ms:.2f} ms); per tactile read {q_ms:.2f} "
+                  f"ms (K4 {k_ms:.4f} ms of it), {q_ms / ROLL_STRIDE:.2f} ms "
+                  f"per step [{self.card}]")
+            return step_ms + q_ms / ROLL_STRIDE
+
+        # warm-up chunk (tables, allocator), then where a step's time goes
+        # at the start, which predicts the full run's time
+        state0 = sim.init_state()
+        rollout(model, state0, chunks(ROLL_STRIDE))
+        torch.cuda.synchronize()
+        per_step = split(state0, chunks(ROLL_STRIDE)[0], "at the start") / 1e3
+        steps = ROLL_STEPS
+        if per_step * ROLL_STEPS > ROLL_BUDGET_S:
+            steps = ROLL_CUT
+            print(f"  CUT: {per_step * 1e3:.1f} ms per step predicts "
+                  f"{per_step * ROLL_STEPS:.0f} s for {ROLL_STEPS} steps > "
+                  f"{ROLL_BUDGET_S:.0f} s: running the first {ROLL_CUT} "
+                  "steps of the protocol")
+        us = chunks(steps)
+        K = us.shape[0]
+
+        # (a) the main path
+        dense_contact.reset_counts()
+        t0 = time.perf_counter()
+        state, qs, vars_, tacs = rollout(model, state0, us)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dense_contact.launches
+        nsteps = K * ROLL_STRIDE
+        tac = tacs.reshape(K, -1, 3).double().cpu().numpy()
+        normal = np.abs(tac[:, :, 2])
+        touched = np.nonzero(normal.max(axis=1) > 0)[0]
+        last = tac[touched[-1]] if len(touched) else tac[-1]
+        print(f"  K4 launches {launches} (want {K}: one per tactile read)")
+        print(f"  RollingBall {ROLL_RES}x{ROLL_RES} f32, {nsteps} steps, "
+              f"{K} tactile reads in {wall:.2f} s: {nsteps / wall:.3f} sim "
+              f"steps/s (FPS as the JAX CLI reckons it), "
+              f"{wall / nsteps * 1e3:.1f} ms per step [{self.card}]")
+        print(f"  reads in contact: {len(touched)} of {K}, steps "
+              f"{[int(k + 1) * ROLL_STRIDE for k in touched]}; largest "
+              f"normal over the run {normal.max():.4g}; last read in "
+              f"contact: max |normal| = {np.abs(last[:, 2]).max():.4g}, max "
+              f"|shear| = {np.linalg.norm(last[:, :2], axis=1).max():.4g}, "
+              f"active markers = {int((np.abs(last[:, 2]) > 1e-9).sum())}; "
+              f"final q {np.round(state.q.double().cpu().numpy(), 6).tolist()}")
+        if launches != K:
+            raise AssertionError(f"K4 launched {launches} times, want {K}")
+        if not bool(torch.isfinite(qs).all()):
+            raise AssertionError("q not finite")
+        if not len(touched):
+            raise AssertionError("the tactile field stayed zero")
+        self.kernel_rows.setdefault("K4", {})["launches"] = launches
+
+        # every op of a step is dense (no branch on the data), so the
+        # split at the start holds in contact too
+        self.device_share(lambda: step(model, state, us[-1]),
+                          "one RollingBall step")
+
+        # (b) the facade on the same scene
+        fac = simulation.Simulation((struct, model64), device=dev,
+                                    dtype=torch.float32)
+        qp, vp = self.pressed_ball(model64.q_init.numpy())
+        fac.set_state_init(qp, vp)
+        fac.reset()
+        fac.set_u([0.0, 0.0, 0.2])
+        fac.forward(5)
+        dense_contact.reset_counts()
+        got = fac.get_tactile_force_vector()
+        n_fac = dense_contact.launches
+        want = fac.sim.tactile(fac.model, fac._state).cpu().numpy()
+        print(f"  facade: forward(5) from the pressed state, "
+              f"get_tactile_force_vector {got.shape}, max |f| "
+              f"{np.abs(got).max():.4g}, K4 launches {n_fac}; trajectory "
+              f"{fac.export_trajectory().shape}")
+        if n_fac != 1 or not np.array_equal(got, want):
+            raise AssertionError("the facade's tactile vector is not the "
+                                 "Simulator's K4 query")
+        if not np.abs(got).max() > 0:
+            raise AssertionError("the facade's tactile vector is zero")
+
+        # (c) card against CPU: 10 steps, 2 tactile reads
+        cpu = torch.device("cpu")
+        runs = {}
+        for where, dtype in ((dev, torch.float64), (dev, torch.float32),
+                             (cpu, torch.float64), (cpu, torch.float32)):
+            m = model64.to(where, dtype)
+            s = simulation.Simulator(struct, m)
+            ro = s.make_rollout_strided(ROLL_STRIDE, fast_tactile=True)
+            st0 = s.init_state(q=qp, qdot=vp)
+            uu = torch.tensor([[0.1, 0.0, 0.2]] * 2, dtype=dtype,
+                              device=where)
+            dense_contact.reset_counts()
+            t0 = time.perf_counter()
+            st, _, _, tc = ro(m, st0, uu)
+            if where.type == "cuda":
+                torch.cuda.synchronize()
+            print(f"  {where.type} {str(dtype)[6:]}: 10 steps, 2 reads in "
+                  f"{time.perf_counter() - t0:.2f} s, K4 launches "
+                  f"{dense_contact.launches}")
+            if dense_contact.launches != (2 if where.type == "cuda" else 0):
+                raise AssertionError("the card's reads did not run K4")
+            runs[(where.type, dtype)] = {
+                k: x.detach().double().cpu() for k, x in
+                (("q", st.q), ("qdot", st.qdot), ("tactile", tc))}
+        ref = runs[("cpu", torch.float64)]
+        if not float(ref["tactile"].abs().max()) > 0:
+            raise AssertionError("no contact in the card-vs-CPU window")
+        rel = lambda g, w: float((g - w).abs().max()) / float(w.abs().max())
+        for name, tol in ROLL_F64_TOL.items():
+            err = rel(runs[("cuda", torch.float64)][name], ref[name])
+            print(f"  card float64 vs cpu float64 {name:8s} rel {err:.3e} "
+                  f"(tol {tol:g})")
+            if not err <= tol:
+                raise AssertionError(f"card float64 vs CPU: {name}")
+        # float32 parts from float64 in this window as a property of f32
+        # (ROLL_F32_VS_F64): the card's float32 run is held to the CPU's
+        # float32 run's distance from float64
+        mult, floor = ROLL_F32_VS_F64
+        for name in ROLL_F64_TOL:
+            e_card = rel(runs[("cuda", torch.float32)][name], ref[name])
+            e_cpu = rel(runs[("cpu", torch.float32)][name], ref[name])
+            direct = rel(runs[("cuda", torch.float32)][name],
+                         runs[("cpu", torch.float32)][name])
+            print(f"  float32 vs cpu float64 {name:8s} rel: card {e_card:.3e}"
+                  f", cpu {e_cpu:.3e} (tol {mult:g} x cpu + {floor:g}); "
+                  f"card vs cpu float32 {direct:.3e}")
+            if not e_card <= mult * e_cpu + floor:
+                raise AssertionError(f"card float32 vs CPU: {name}")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -783,6 +1094,7 @@ def main() -> int:
         s.phase("slice", s.slice, dev)
         s.phase("train", s.train, dev)
         s.phase("cross", s.cross, dev)
+        s.phase("rolling", s.rolling, dev)
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failed:
         print(f"FAILED phases: {s.failed}")

@@ -1,0 +1,101 @@
+"""RollingBall sim-speed benchmark on the port, the reference's protocol
+(examples/RollingBallExp/test_sim_speed.py): a sphere under a
+force-controlled tactile pad of resolution^2 markers (200 x 200 = 40,000),
+BDF2, h = 5e-3, 350 steps of piecewise-constant pad forces, the tactile
+field read every 5 steps; prints the wall-clock FPS.
+
+    python -m tactilesimulation_tpu_torch.examples.rolling_ball_speed \
+        [--steps 350] [--resolution 200] [--f64] [--cpu]
+
+Runs on the CUDA card (the tactile reads go through the K4 kernel) and
+raises without one unless ``--cpu`` is given (then the plain PyTorch path
+runs).
+"""
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+# piecewise-constant control schedule (reference test_sim_speed.py:43-48)
+ACTIONS = [(0.0, 0.0, 0.2), (0.1, 0.0, 0.2), (-0.2, 0.0, 0.2),
+           (0.0, 0.1, 0.2), (0.0, -0.2, 0.2)]
+STEPS = [0, 100, 150, 200, 250, 350]
+STRIDE = 5                      # tactile acquired every 5 steps (ref :73)
+
+
+def control_chunks(steps: int, nu: int) -> np.ndarray:
+    """(steps // STRIDE, nu): the schedule's control of each chunk."""
+    us = np.zeros((STEPS[-1], nu))
+    for i in range(len(STEPS) - 1):
+        us[STEPS[i]:STEPS[i + 1]] = ACTIONS[i]
+    us = us[:steps]
+    K = us.shape[0] // STRIDE
+    return us[:K * STRIDE:STRIDE]
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=350)
+    ap.add_argument("--resolution", type=int, default=200)
+    ap.add_argument("--f64", action="store_true")
+    ap.add_argument("--cpu", action="store_true")
+    args = ap.parse_args(argv)
+
+    from tactilesimulation_tpu_torch.envs.tactile_push import resolve_device
+    from tactilesimulation_tpu_torch.model import task_scenes
+    from tactilesimulation_tpu_torch.sim.simulation import Simulator
+
+    device = resolve_device("cpu" if args.cpu else "cuda")
+    dtype = torch.float64 if args.f64 else torch.float32
+    struct, model = task_scenes.rolling_ball(resolution=args.resolution)
+    model = model.to(device, dtype)
+    sim = Simulator(struct, model)
+    print(f"scene '{struct.name}': ndof_r={struct.ndof_q} "
+          f"ndof_u={struct.ndof_u} markers={struct.ndof_tactile // 3}")
+
+    us_chunks = torch.as_tensor(control_chunks(args.steps, struct.ndof_u),
+                                dtype=dtype, device=device)
+    K = us_chunks.shape[0]
+    rollout = sim.make_rollout_strided(STRIDE, remat=False,
+                                       fast_tactile=True)
+    state0 = sim.init_state()
+
+    print("first run...")
+    t0 = time.time()
+    out = rollout(model, state0, us_chunks)
+    sync(device)
+    print(f"first run: {time.time() - t0:.1f}s")
+
+    # the JAX CLI's repeat protocol: perturbed controls, median of the later
+    # runs (here fenced by torch.cuda.synchronize)
+    rng = np.random.RandomState(100)
+    times = []
+    for _ in range(4):
+        us_chunks = us_chunks + torch.as_tensor(
+            1e-4 * rng.randn(*us_chunks.shape), dtype=dtype, device=device)
+        t0 = time.time()
+        out = rollout(model, state0, us_chunks)
+        sync(device)
+        times.append(time.time() - t0)
+    t1 = float(np.median(times[1:]))
+
+    nsteps = K * STRIDE
+    print(f"time elapsed = {t1:.3f} , FPS = {nsteps / t1:.1f}")
+    state, qs, vars_, tactiles = out
+    print("final q:", state.q.cpu().numpy()[..., :6])
+    tac = tactiles[-1].reshape(-1, 3).cpu().numpy()
+    print(f"tactile: max |normal| = {np.abs(tac[:, 2]).max():.4g}, "
+          f"max |shear| = {np.linalg.norm(tac[:, :2], axis=1).max():.4g}, "
+          f"active markers = {(np.abs(tac[:, 2]) > 1e-9).sum()}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,88 @@
+"""The dense tactile field query on the contact kernel K4.
+
+Port of ``tactilesimulation_tpu/ops/tactile_query.py``. The query needs the
+marker forces only, not the generalized contact force, so it skips the
+wrench and J^T f machinery of the step: FK and the joints' world twists
+(``dynamics.twists``, the JVP of FK written as plain ops) give the markers'
+world positions and velocities and the bodies' poses and velocities; each
+tactile pair is one ``dense_contact.dense_point_contact`` call (K4 on the
+card, its plain version on the CPU); the forces are then projected onto
+the per-marker sensor axes.
+
+Used by ``Simulator.tactile`` (the facade's ``get_tactile_force_vector``)
+and the strided rollout's ``fast_tactile`` query. Forward only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..model.schema import GEOM_CUBOID, GEOM_CYLINDER, GEOM_SPHERE
+from ..sim import dynamics, kinematics, spatial
+from ..sim.contact import GROUND
+from .dense_contact import dense_point_contact
+
+
+def supported(struct) -> bool:
+    """True if every tactile pair is point-vs-{ground, primitive}."""
+    ok = (GEOM_CUBOID, GEOM_CYLINDER, GEOM_SPHERE)
+    for pair in struct.tactile_pairs:
+        if pair.general_is_sphere:
+            return False
+        if pair.primitive_body >= 0 and \
+                struct.body_gtype[pair.primitive_body] not in ok:
+            return False
+    return len(struct.tactile_pairs) > 0
+
+
+def tactile_field(struct, model, q, v):
+    """(Mtot, 3) sensor-frame [shear0, shear1, normal] marker forces; the
+    query's counterpart of ``dynamics.tactile_field``."""
+    ntac = len(struct.tac_joint)
+    if ntac == 0:
+        return q.new_zeros((0, 3))
+    tb = kinematics._tables(struct, q)
+    with torch.no_grad():
+        jp, jq, Om, be = dynamics.twists(struct, model, q, v)
+        tj, bj = tb.tac_joint, tb.body_joint
+        tq = jq[tj]
+        x = spatial.transform_apply(jp[tj], tq, model.tac_pos)
+        xd = spatial.cross(Om[tj], x) + be[tj]
+        bp, bquat = spatial.transform_compose(jp[bj], jq[bj], model.body_pos,
+                                              model.body_quat)
+        bw = Om[bj]
+        bv = spatial.cross(bw, bp) + be[bj]
+        bR = spatial.quat_to_mat(bquat)
+        ground = (model.ground_pos, model.ground_normal)
+        forces = []
+        for pair in struct.tactile_pairs:
+            sl = slice(pair.point_start, pair.point_start + pair.point_count)
+            k = pair.param_index
+            params = torch.stack([model.tac_kn[k], model.tac_kt[k],
+                                  model.tac_mu[k], model.tac_damping[k]])
+            if pair.primitive_body < 0:
+                zero3 = q.new_zeros(3)
+                gtype, pose, vel = GROUND, (zero3, tb.eye3), (zero3, zero3)
+                size = q.new_ones(3)
+            else:
+                b = pair.primitive_body
+                gtype = struct.body_gtype[b]
+                pose, vel, size = (bp[b], bR[b]), (bv[b], bw[b]), \
+                    model.body_size[b]
+            forces.append((sl, dense_point_contact(
+                gtype, x[sl].contiguous(), xd[sl].contiguous(), pose, vel,
+                size, params, ground)))
+        if len(forces) == 1 and forces[0][0] == slice(0, ntac):
+            tac_force = forces[0][1]
+        else:
+            tac_force = q.new_zeros((ntac, 3))
+            for sl, f in forces:
+                tac_force[sl] = f
+
+        # project onto the per-marker sensor axes (owner joint frame axes)
+        n_w = spatial.quat_rotate(tq, model.tac_normal)
+        a0_w = spatial.quat_rotate(tq, model.tac_axis0)
+        a1_w = spatial.quat_rotate(tq, model.tac_axis1)
+        return torch.stack([torch.sum(tac_force * a0_w, dim=-1),
+                            torch.sum(tac_force * a1_w, dim=-1),
+                            torch.sum(tac_force * n_w, dim=-1)], dim=-1)

@@ -1,8 +1,49 @@
-"""Solver constants shared with the lane-major stepper (``sim/lanes.py``)."""
+"""Implicit BDF1/BDF2 stepping of one instance, forward only.
+
+Port of ``tactilesimulation_tpu/sim/integrators.py``. One step solves the
+momentum-form residual
+
+    r(v') = p(q', v') - p_base - gamma * [dL/dq(q', v') + Q(q', v', u)]
+    q'    = q_base + gamma * v'
+
+with a chord iteration: the Jacobian is built and LU-factored once at the
+warm start, then ``max_iter`` masked sweeps reuse the factor and the best
+iterate (by residual norm) is returned. Coefficients:
+
+    BDF1: gamma = h,    q_base = q,            p_base = p(q, v)
+    BDF2: gamma = 2h/3, q_base = (4q - q_)/3,  p_base = (4 p(q,v) - p(q_,v_))/3
+          (the first step falls back to BDF1: no history yet)
+
+The step never waits for the device: the sweep count is fixed, a converged
+iterate is frozen by ``torch.where``, BDF2's first-step fallback is a
+``torch.where`` on the step counter, and the LU is ``lu_factor_ex`` (no
+error check that would synchronise). The implicit-function adjoint of the
+solve is not ported yet: ``newton_solve`` refuses inputs that require grad
+while grad mode is on, and never backpropagates through the sweeps.
+
+The chord Jacobian J = dr/dv comes from n reverse-mode pullbacks of one
+residual graph (row i = the pullback of the i-th basis cotangent), run as
+one batched backward pass; JAX forms it from ``jax.linearize``. Both factor
+the ridged J with a pivoted LU.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+from typing import NamedTuple
+
 import torch
+
+from . import dynamics
+from .types import Model, SimState, Structure
+
+
+class StepInputs(NamedTuple):
+    model: Model
+    u: torch.Tensor
+    q_base: torch.Tensor
+    p_base: torch.Tensor
+    gamma: torch.Tensor
 
 
 def ridge_eps(dtype) -> float:
@@ -12,3 +53,148 @@ def ridge_eps(dtype) -> float:
     -- scale-aware so near-massless dofs stay solvable in f32. Same formula
     as the JAX package's ``integrators.ridge_eps``."""
     return 1e-7 if dtype == torch.float32 else 1e-12
+
+
+def _ridged(J):
+    """J (n, n) + scale-aware ridge (lane-major twin: ``lanes._ridge``)."""
+    n = J.shape[0]
+    diag_mag = torch.mean(torch.abs(torch.diagonal(J)))
+    eye = torch.eye(n, dtype=J.dtype, device=J.device)
+    return J + (ridge_eps(J.dtype) * (diag_mag + 1.0)) * eye
+
+
+def make_residual(struct: Structure, points_major: bool = False):
+    """``points_major`` evaluates contact in the (3, N) points-in-lanes
+    layout (``sim/dense_single.py``), the dense-marker-field path."""
+    if points_major:
+        from . import dense_single
+        forces = dense_single.applied_forces_points_major
+    else:
+        forces = dynamics.applied_forces
+
+    def residual(v_new, inputs: StepInputs):
+        qn = inputs.q_base + inputs.gamma * v_new
+        dLdq, p_new = dynamics.el_terms(struct, inputs.model, qn, v_new)
+        Q, _ = forces(struct, inputs.model, qn, v_new, inputs.u,
+                      tactile=False)
+        return p_new - inputs.p_base - inputs.gamma * (dLdq + Q)
+    return residual
+
+
+def _detach(inputs: StepInputs) -> StepInputs:
+    return StepInputs(model=inputs.model, u=inputs.u.detach(),
+                      q_base=inputs.q_base.detach(),
+                      p_base=inputs.p_base.detach(),
+                      gamma=inputs.gamma.detach())
+
+
+def chord_factor(residual_fn, inputs: StepInputs, v_guess):
+    """(LU, pivots, r0): the pivoted LU of the ridged chord Jacobian
+    J = dr/dv at the warm start, and the residual there; all detached."""
+    inputs = _detach(inputs)
+    n = v_guess.shape[0]
+    with torch.enable_grad():
+        v = v_guess.detach().requires_grad_()
+        r = residual_fn(v, inputs)
+        basis = torch.eye(n, dtype=v.dtype, device=v.device)
+        # the n pullbacks as one batched backward pass (vmap over the
+        # cotangents); row i is the pullback of e_i
+        (J,) = torch.autograd.grad(r, v, basis, is_grads_batched=True)
+    lu, piv, _ = torch.linalg.lu_factor_ex(_ridged(J))
+    return lu, piv, r.detach()
+
+
+def chord_sweeps(residual_fn, max_iter, tol, inputs: StepInputs, v_guess,
+                 factor):
+    """``max_iter`` chord sweeps from ``v_guess`` with the factor of
+    ``chord_factor``; a converged iterate is frozen, the best is returned.
+    The tolerance is residual-scale aware: max(tol, rel |r0|)."""
+    lu, piv, r0 = factor
+    rel = 1e-4 if v_guess.dtype == torch.float32 else 1e-7
+    inputs = _detach(inputs)
+    with torch.no_grad():
+        rn0 = torch.linalg.norm(r0)
+        tol_eff = torch.clamp(rel * rn0, min=tol)
+        v, r, rn = v_guess.detach(), r0, rn0
+        v_best, rn_best = v, rn0
+        for _ in range(max_iter):
+            dv = torch.linalg.lu_solve(lu, piv, r[:, None])[:, 0]
+            v = torch.where(rn <= tol_eff, v, v - dv)
+            r = residual_fn(v, inputs)
+            rn = torch.linalg.norm(r)
+            better = rn < rn_best
+            v_best = torch.where(better, v, v_best)
+            rn_best = torch.where(better, rn, rn_best)
+    return v_best
+
+
+def _requires_grad(inputs: StepInputs, v_guess) -> bool:
+    if any(t.requires_grad for t in (inputs.u, inputs.q_base, inputs.p_base,
+                                     inputs.gamma, v_guess)):
+        return True
+    m = inputs.model
+    return any(getattr(m, f.name).requires_grad
+               for f in dataclasses.fields(m))
+
+
+def newton_solve(residual_fn, max_iter, tol, inputs: StepInputs, v_guess):
+    """The chord solve, forward only. Raises while grad mode is on if any
+    input requires grad: the implicit-function adjoint is not ported, and
+    backpropagating through the sweeps would give a wrong gradient."""
+    if torch.is_grad_enabled() and _requires_grad(inputs, v_guess):
+        raise NotImplementedError(
+            "newton_solve has no backward yet (the single-instance IFT "
+            "adjoint is not ported); run it under torch.no_grad() or on "
+            "inputs that do not require grad")
+    factor = chord_factor(residual_fn, inputs, v_guess)
+    return chord_sweeps(residual_fn, max_iter, tol, inputs, v_guess, factor)
+
+
+def step_inputs(struct: Structure, model: Model, state: SimState, u):
+    """StepInputs of one BDF1/BDF2 step from ``state``: BDF2 falls back to
+    BDF1 on the first step (a ``torch.where`` on the counter, no sync)."""
+    h = model.h
+    u = torch.as_tensor(u, dtype=state.q.dtype, device=state.q.device)
+    p_now = dynamics.momentum(struct, model, state.q, state.qdot)
+    if struct.integrator.upper() == "BDF2":
+        first = state.t == 0
+        p_prev = dynamics.momentum(struct, model, state.q_prev,
+                                   state.qdot_prev)
+        gamma = torch.where(first, h, 2.0 * h / 3.0)
+        q_base = torch.where(first, state.q,
+                             (4.0 * state.q - state.q_prev) / 3.0)
+        p_base = torch.where(first, p_now, (4.0 * p_now - p_prev) / 3.0)
+    else:
+        gamma, q_base, p_base = h, state.q, p_now
+    return StepInputs(model=model, u=u, q_base=q_base, p_base=p_base,
+                      gamma=gamma)
+
+
+def solver_tol(struct: Structure, dtype) -> float:
+    return max(struct.solver_tol, 1e-7 if dtype == torch.float32 else 1e-12)
+
+
+def build_step(struct: Structure, points_major: bool = False):
+    """step(model, state, u) -> state'. ``points_major`` routes contact
+    through the (3, N) layout (``sim/dense_single.py``)."""
+    residual_fn = make_residual(struct, points_major=points_major)
+    max_iter = struct.solver_max_iter
+
+    def step(model: Model, state: SimState, u):
+        inputs = step_inputs(struct, model, state, u)
+        v_new = newton_solve(residual_fn, max_iter,
+                             solver_tol(struct, state.q.dtype), inputs,
+                             state.qdot)
+        q_new = inputs.q_base + inputs.gamma * v_new
+        return SimState(q=q_new, qdot=v_new, q_prev=state.q,
+                        qdot_prev=state.qdot, t=state.t + 1)
+
+    step.residual_fn = residual_fn
+    return step
+
+
+def initial_state(struct: Structure, model: Model) -> SimState:
+    return SimState(q=model.q_init, qdot=model.qdot_init,
+                    q_prev=model.q_init, qdot_prev=model.qdot_init,
+                    t=torch.zeros((), dtype=torch.int32,
+                                  device=model.q_init.device))

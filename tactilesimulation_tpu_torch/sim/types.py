@@ -81,6 +81,21 @@ class Model:
 
 
 @dataclasses.dataclass(frozen=True)
+class SimState:
+    """Single-instance integrator state: ``(q, qdot)`` plus one step of
+    history for BDF2 and the step counter (a 0-d int32 tensor, so BDF2's
+    first-step test stays on the device)."""
+    q: torch.Tensor
+    qdot: torch.Tensor
+    q_prev: torch.Tensor              # previous-step q (BDF2 history)
+    qdot_prev: torch.Tensor
+    t: torch.Tensor                   # () int32 step counter
+
+    def replace(self, **changes) -> "SimState":
+        return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass(frozen=True)
 class PairInfo:
     general_body: int
     primitive_body: int               # -1 = ground half-space

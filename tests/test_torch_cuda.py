@@ -11,13 +11,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (ACTOR_CFG, K23_F32_VS_F64, K23_F64_TOL,
-                        contact_state, cylinder_probe)
+from chip_smoke import (ACTOR_CFG, K23_F32_VS_F64, K23_F64_TOL, K4_TOL,
+                        Smoke, contact_state, cylinder_probe)
 from tactilesimulation_tpu_torch.envs import tactile_push_lanes
 from tactilesimulation_tpu_torch.model import task_scenes
 from tactilesimulation_tpu_torch.models.nets import DiagGaussianActor
-from tactilesimulation_tpu_torch.ops import lane_contact, megastep
-from tactilesimulation_tpu_torch.sim import contact, lanes
+from tactilesimulation_tpu_torch.ops import (dense_contact, lane_contact,
+                                            megastep, tactile_query)
+from tactilesimulation_tpu_torch.sim import contact, dense_single, lanes
+from tactilesimulation_tpu_torch.sim import simulation
 
 pytestmark = pytest.mark.cuda
 B = 256
@@ -188,3 +190,68 @@ def test_mega_rollout_backward_runs_through_k2_k3(card):
     assert env.pair_wrenches.launches == 1 + 2
     assert all(bool(torch.isfinite(x).all()) for x in grads)
     assert sum(float(x.abs().sum()) for x in grads) > 0
+
+
+# K4 against its plain version (tolerances and their reasons:
+# chip_smoke.py K4_TOL)
+@pytest.mark.parametrize("N", [1, 257, 40000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("gtype", [-1, 0, 1, 2],
+                         ids=["ground", "cuboid", "cylinder", "sphere"])
+def test_k4_matches_plain_version(card, gtype, dtype, N):
+    dc, args = Smoke.k4_inputs(gtype, N, dtype, card)
+    dense_contact.reset_counts()
+    got = dc.dense_point_contact(gtype, *args)
+    torch.cuda.synchronize()
+    assert dense_contact.launches == 1
+    want = dc.dense_point_contact_ref(gtype, *args)
+    assert got.dtype == dtype and tuple(got.shape) == (N, 3)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= K4_TOL[dtype] * scale
+    if N > 1:
+        assert 0 < int((want.abs().sum(dim=1) > 0).sum()) < N
+
+
+def test_k4_raises_instead_of_falling_back(card):
+    dc, args = Smoke.k4_inputs(2, 257, torch.float32, card)
+    x, xd, rest = args[0], args[1], args[2:]
+    dense_contact.reset_counts()
+    with pytest.raises(ValueError, match="contiguous"):
+        dc.dense_point_contact(2, x.T.contiguous().T, xd, *rest)
+    with pytest.raises(ValueError, match="shape"):
+        dc.dense_point_contact(2, x[:, :2].contiguous(), xd, *rest)
+    with pytest.raises(ValueError, match="shape"):
+        dc.dense_point_contact(2, x, xd[:-1], *rest)
+    with pytest.raises(TypeError):
+        dc.dense_point_contact(2, x.half(), xd.half(), *rest)
+    with pytest.raises(ValueError, match="xdot"):
+        dc.dense_point_contact(2, x, xd.cpu(), *rest)
+    with pytest.raises(ValueError, match="primitive type"):
+        dc.dense_point_contact(5, x, xd, *rest)
+    assert dense_contact.launches == 0
+
+
+def test_rolling_query_runs_through_k4(card):
+    struct, model = task_scenes.rolling_ball(resolution=8)
+    model = model.to(card, torch.float32)
+    q, v = Smoke.pressed_ball(model.q_init.cpu().numpy())
+    q = torch.as_tensor(q, dtype=torch.float32, device=card)
+    v = torch.as_tensor(v, dtype=torch.float32, device=card)
+    dense_contact.reset_counts()
+    got = tactile_query.tactile_field(struct, model, q, v)
+    assert dense_contact.launches == 1
+    # the plain differentiable path in float32: marker velocities from the
+    # joint twists there, v + w x d inside K4; the two differ by float
+    # round-off (6e-6 of scale measured at 40,000 markers)
+    want = dense_single.tactile_field_points_major(struct, model, q, v)
+    scale = float(want.abs().max())
+    assert scale > 0
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    sim = simulation.Simulator(struct, model)
+    rollout = sim.make_rollout_strided(5, fast_tactile=True)
+    us = torch.tensor([[0.1, 0.0, 0.2]] * 2, device=card)
+    dense_contact.reset_counts()
+    state, qs, _, tacs = rollout(model, sim.init_state(q=q, qdot=v), us)
+    assert dense_contact.launches == 2
+    assert bool(torch.isfinite(qs).all()) and bool(torch.isfinite(tacs).all())
