@@ -22,7 +22,9 @@ seconds):
               version each against the f64 plain version, and on resting
               contact directly against the f32 plain version. Kernel and
               plain times at the main path's shapes, bounds from the
-              operations counted at the timed run's inputs. K4
+              operations counted at the timed run's inputs; K2/K3 also at
+              B = 16 (the GD width), and each instance's registers, stack,
+              shared memory and resident blocks per SM. K4
               (csrc/dense_contact.cu) against its plain version for the 4
               primitive types, float32 and float64, at N = 40,000 and
               40,001 points with some in contact; kernel and plain times at
@@ -452,7 +454,7 @@ class Smoke:
         k2_plain = (time.perf_counter() - t0) * 1e3
         ref = ops[torch.float64].fwd_ref(*x64[:3])
         k2_err = three_way(f"K2 B={B_MAIN} (q, qdot, vs)", got, plain, ref)
-        k2_ms = cuda_ms(lambda: op.run_fwd(q, v, u), 5, warmup=1)
+        k2_ms = cuda_ms(lambda: op.run_fwd(q, v, u), 20, warmup=2)
         Bb = 128
         y64 = [a[..., :Bb].contiguous() for a in x64[:3] + [ref[2]] + x64[3:]]
         y32 = f32(y64)
@@ -460,12 +462,13 @@ class Smoke:
                            op.run_bwd(*y32), op.bwd_ref(*y32),
                            ops[torch.float64].bwd_ref(*y64))
         vs32 = ref[2].float().contiguous()
-        k3_ms = cuda_ms(lambda: op.run_bwd(q, v, u, vs32, *g), 3, warmup=1)
+        k3_ms = cuda_ms(lambda: op.run_bwd(q, v, u, vs32, *g), 20, warmup=2)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         op.bwd_ref(q, v, u, vs32, *g)
         torch.cuda.synchronize()
         k3_plain = (time.perf_counter() - t0) * 1e3
+        self.megastep_shapes(megastep, op, [q, v, u, vs32] + g)
         # and on resting contact, where the f32 chord converges: directly
         # against the f32 plain version
         q, v, u, *g = f32(case(B_MAIN, 0, resting_contact))
@@ -509,6 +512,23 @@ class Smoke:
         print(f"  K2 residual evaluations per lane: mean "
               f"{float(nres.float().mean()):.2f} of {K * 9} (chord stops "
               f"early on converged lanes)")
+
+    def megastep_shapes(self, megastep, op, args):
+        """K2/K3 at the GD width (B = 16, the first lanes of the timed
+        states); then each instance's registers, local (stack) bytes, shared
+        bytes and resident blocks per SM."""
+        sub = [a[..., :16].contiguous() for a in args]
+        t = [cuda_ms(fn, 20, warmup=2) for fn in (
+            lambda: op.run_fwd(*sub[:3]), lambda: op.run_bwd(*sub))]
+        print(f"  B=16: K2 {t[0]:.3f} ms, K3 {t[1]:.3f} ms [{self.card}]")
+        for name, d in megastep.kernel_info().items():
+            print(f"  {name}: {d['registers']} registers, local (stack) "
+                  f"{d['local_bytes']} B per thread, shared "
+                  f"{d['dynamic_shared_bytes']} B per block of "
+                  f"{d['lanes_per_block']} lanes, {d['blocks_per_sm']} "
+                  f"blocks ({d['blocks_per_sm'] * d['lanes_per_block']} "
+                  f"lanes) per SM; device stack limit "
+                  f"{d['stack_limit_bytes']} B per thread")
 
     @staticmethod
     def k4_inputs(gtype, N, dtype, dev, seed=0):

@@ -4,9 +4,11 @@ The kernels' device code compiles as plain C++ when the CUDA qualifiers are
 stubbed out; the launches are compiled only by nvcc. This tool builds it
 twice, on the CPU:
 
-- ``HostMegastep``: the kernels themselves in float64, run lane by lane,
-  so a CPU test holds the CUDA source to the plain version
-  (tests/test_torch_megastep.py);
+- ``HostMegastep``: the kernels' lane routines (``fwd_lane``, ``bwd_lane``)
+  in float64, run lane by lane with a team of one thread that deals each
+  phase's tasks as a warp of ``width`` threads would, so a CPU test holds
+  the CUDA source to the plain version and the team's widths to each
+  other (tests/test_torch_megastep.py);
 - ``Counter``, ``needed`` and ``k2_k3_ops``: the arithmetic K2 and K3 need
   per lane, for their operation bound (``chip_smoke.py`` counts it at its
   own run's inputs).
@@ -134,7 +136,7 @@ extern "C" void count_units(const int* itab, const double* ftab, int nf,
   const int n = sc.n;
   for (int b = 0; b < B; ++b) {
     long long* o = out + 16 * b;
-    C q[kMaxN], qd[kMaxN], u[kMaxU], pb[kMaxN], qn[kMaxN], r[kMaxN];
+    C q[kMaxN], qd[kMaxN], u[kMaxN], pb[kMaxN], qn[kMaxN], r[kMaxN];
     for (int i = 0; i < n; ++i) {
       q[i] = C(q0[i * B + b]);
       qd[i] = C(qd0[i * B + b]);
@@ -187,34 +189,66 @@ extern "C" void count_units(const int* itab, const double* ftab, int nf,
 """
 
 _RUN_SRC = r"""
+#include <algorithm>
 #include "cuda_runtime.h"
 dim3 blockIdx, threadIdx, blockDim;
 #include "megastep.cu"
-static void lane(int b) {
-  blockDim.x = 32;
-  blockIdx.x = b / 32;
-  threadIdx.x = b % 32;
+// every lane of the batch through one lane's routine, with a team of one
+// thread that runs a width of `width` (Team), the lane's state on the heap
+template <int M>
+void fwd_all(const Scene<double>& sc, int width, int K, int mi, double tol,
+             const double* q0, const double* qd0, const double* u, int B,
+             double* qo, double* qdo, double* vs, int* nres) {
+  auto* lane = new FwdLane<double, M>();
+  for (int b = 0; b < B; ++b)
+    fwd_lane(Team{0, width}, sc, *lane, K, mi, tol, q0, qd0, u, B, b, qo,
+             qdo, vs, nres);
+  delete lane;
 }
-extern "C" void host_fwd(const int* it, const double* ft, int K, int mi,
-                         double tol, const double* q0, const double* qd0,
-                         const double* u, int B, double* qo, double* qdo,
-                         double* vs, int* nres) {
-  for (int b = 0; b < B; ++b) {
-    lane(b);
-    fwd_kernel<double>(it, ft, K, mi, tol, q0, qd0, u, B, qo, qdo, vs, nres);
-  }
+template <int M>
+void bwd_all(const Scene<double>& sc, int width, int K, const double* q0,
+             const double* qd0, const double* u, const double* vs,
+             const double* gq, const double* gqd, const double* gqp,
+             const double* gqdp, int B, double* gq0, double* gqd0,
+             double* gu) {
+  auto* lane = new BwdLane<double, M>();
+  for (int b = 0; b < B; ++b)
+    bwd_lane(Team{0, width}, sc, *lane, K, q0, qd0, u, vs, gq, gqd, gqp,
+             gqdp, B, b, gq0, gqd0, gu);
+  delete lane;
 }
-extern "C" void host_bwd(const int* it, const double* ft, int K,
-                         const double* q0, const double* qd0, const double* u,
-                         const double* vs, const double* gq,
-                         const double* gqd, const double* gqp,
-                         const double* gqdp, int B, double* gq0,
-                         double* gqd0, double* gu) {
-  for (int b = 0; b < B; ++b) {
-    lane(b);
-    bwd_kernel<double>(it, ft, K, q0, qd0, u, vs, gq, gqd, gqp, gqdp, B, gq0,
-                       gqd0, gu);
-  }
+static int maxdim(const Scene<double>& sc) {
+  return std::max(std::max(sc.n, sc.J), std::max(sc.NB, sc.nu));
+}
+extern "C" int host_fwd(const int* it, const double* ft, int K, int mi,
+                        double tol, const double* q0, const double* qd0,
+                        const double* u, int B, double* qo, double* qdo,
+                        double* vs, int* nres, int width) {
+  const Scene<double> sc = load_scene(it, ft);
+  if (maxdim(sc) <= kSmallN)
+    fwd_all<kSmallN>(sc, width, K, mi, tol, q0, qd0, u, B, qo, qdo, vs, nres);
+  else if (maxdim(sc) <= kMaxN)
+    fwd_all<kMaxN>(sc, width, K, mi, tol, q0, qd0, u, B, qo, qdo, vs, nres);
+  else
+    return 1;
+  return 0;
+}
+extern "C" int host_bwd(const int* it, const double* ft, int K,
+                        const double* q0, const double* qd0, const double* u,
+                        const double* vs, const double* gq,
+                        const double* gqd, const double* gqp,
+                        const double* gqdp, int B, double* gq0,
+                        double* gqd0, double* gu, int width) {
+  const Scene<double> sc = load_scene(it, ft);
+  if (maxdim(sc) <= kSmallN)
+    bwd_all<kSmallN>(sc, width, K, q0, qd0, u, vs, gq, gqd, gqp, gqdp, B,
+                     gq0, gqd0, gu);
+  else if (maxdim(sc) <= kMaxN)
+    bwd_all<kMaxN>(sc, width, K, q0, qd0, u, vs, gq, gqd, gqp, gqdp, B, gq0,
+                   gqd0, gu);
+  else
+    return 1;
+  return 0;
 }
 """
 
@@ -241,18 +275,23 @@ def build(workdir: str, source: str) -> ctypes.CDLL:
 
 
 class HostMegastep:
-    """K2/K3's kernels in float64 on the CPU, one lane after another, with
-    ``MegaStep.run_fwd`` / ``run_bwd``'s signature (CPU float64 tensors)."""
+    """K2/K3's lane routines in float64 on the CPU, one lane after another,
+    with ``MegaStep.run_fwd`` / ``run_bwd``'s signature (CPU float64
+    tensors). ``width`` is the team's: 32 deals each phase's tasks as a
+    warp does (task i to thread i mod 32, thread by thread), 1 runs them in
+    order; the two give equal results, bit for bit."""
 
-    def __init__(self, op):
+    def __init__(self, op, width: int = 32):
         self.op = op
+        self.width = width
         self._dir = tempfile.TemporaryDirectory()
         self.lib = build(self._dir.name, _RUN_SRC)
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        self.lib.host_fwd.argtypes = [p, p, i, i, d, p, p, p, i, p, p, p, p]
-        self.lib.host_fwd.restype = None
-        self.lib.host_bwd.argtypes = [p, p, i] + [p] * 8 + [i, p, p, p]
-        self.lib.host_bwd.restype = None
+        self.lib.host_fwd.argtypes = [p, p, i, i, d, p, p, p, i, p, p, p, p,
+                                      i]
+        self.lib.host_fwd.restype = i
+        self.lib.host_bwd.argtypes = [p, p, i] + [p] * 8 + [i, p, p, p, i]
+        self.lib.host_bwd.restype = i
 
     def run_fwd(self, q, qd, u):
         op = self.op
@@ -262,10 +301,15 @@ class HostMegastep:
         vs = torch.empty((K, n, B), dtype=torch.float64)
         nres = torch.empty(B, dtype=torch.int32)
         p = ctypes.c_void_p
-        self.lib.host_fwd(*(p(t.data_ptr()) for t in (ints, floats)), K,
-                          op.max_iter, op.tol,
-                          *(p(t.data_ptr()) for t in (q, qd, u)), B,
-                          *(p(t.data_ptr()) for t in (qo, qdo, vs, nres)))
+        err = self.lib.host_fwd(*(p(t.data_ptr()) for t in (ints, floats)),
+                                K, op.max_iter, op.tol,
+                                *(p(t.data_ptr()) for t in (q, qd, u)), B,
+                                *(p(t.data_ptr()) for t in
+                                  (qo, qdo, vs, nres)), self.width)
+        if err:
+            raise ValueError("megastep_host: scene larger than the kernels' "
+                             "largest instance")
+        self.last_residuals = nres
         return qo, qdo, vs
 
     def run_bwd(self, q, qd, u, vs, gq, gqd, gqp, gqdp):
@@ -273,11 +317,15 @@ class HostMegastep:
         ints, floats = op.tables.packed("cpu", torch.float64)
         out = (torch.empty_like(q), torch.empty_like(q), torch.empty_like(u))
         p = ctypes.c_void_p
-        self.lib.host_bwd(*(p(t.data_ptr()) for t in (ints, floats)),
-                          op.frame_skip,
-                          *(p(t.data_ptr()) for t in
-                            (q, qd, u, vs, gq, gqd, gqp, gqdp)),
-                          q.shape[-1], *(p(t.data_ptr()) for t in out))
+        err = self.lib.host_bwd(*(p(t.data_ptr()) for t in (ints, floats)),
+                                op.frame_skip,
+                                *(p(t.data_ptr()) for t in
+                                  (q, qd, u, vs, gq, gqd, gqp, gqdp)),
+                                q.shape[-1],
+                                *(p(t.data_ptr()) for t in out), self.width)
+        if err:
+            raise ValueError("megastep_host: scene larger than the kernels' "
+                             "largest instance")
         return out
 
 

@@ -29,13 +29,39 @@
 // (sim/lanes.contact_terms(moving_point=True)): J and the adjoint are then
 // the derivatives of the residual's value.
 //
-// Layout. Per-lane arrays are batch-last, (rows, B) row-major; one thread
-// per lane; blocks of 32 threads, so B = 1024 spreads over 32 SMs instead
-// of K1's 8 blocks. The scene (FK tables, joint/body constants, mass and
-// inertia, springs, motors, ground, segment table, contact points and
-// parameters, ancestor mask) is two small packed tables (ops/megastep.py
-// SceneTables.packed) read by every thread at the same addresses
-// (broadcast). All per-lane state lives in registers and local memory.
+// Layout. One warp per lane, 2 lanes (warps) per block (kLanes; the choice
+// is argued at the end of this note). Per-lane arrays in device memory
+// are batch-last, (rows, B) row-major. The scene's small tables (FK tables,
+// joint/body constants, mass and inertia, springs, motors, ground, segment
+// table, contact parameters, ancestor mask; ops/megastep.py
+// SceneTables.packed) are staged in shared memory once per block; the
+// contact points stay in device memory. A lane's state (q, qd, u, v, p_base,
+// J or its LU, dr/dq_base, lambda, the residual) and every partial result
+// live in shared memory, in one struct per lane (FwdLane, BwdLane).
+//
+// Work decomposition. A lane's work is a list of independent tasks that its
+// warp deals round-robin to its 32 threads (Team::for_each), with a
+// __syncwarp() between phases. Each task writes its own slot; one task per
+// result combines the slots in a fixed order, so the answer does not depend
+// on which thread ran which task (megastep_host.py runs the same routines on
+// the CPU at widths 1, 7 and 32, equal bit for bit). A residual evaluation
+// (residual_batch) is three phases: (1) the kinematics (FK, dof frames,
+// joint twists) and el_pair's 2n Lagrangian sweeps, one task each; (2) the
+// contact points in chunks of at most 16 (columns) or 8 (values) points of
+// one segment; (3) the chunk sums in segment order, Q and r.
+//   K3, per substep in reverse: J's n columns on Dual<T> (n kinematics and
+//   n x 2n sweep tasks), with the momentum (n sweeps) and its 2n columns
+//   (2n x n sweeps on Dual<Dual<T>>) riding along phase 1: 210 tasks on
+//   TactilePush; then dr/dq_base's n columns (105 tasks); then one thread
+//   factors J^T, solves for lambda and pulls it back (~10^3 operations).
+//   K2: the entry J's n columns with the momentum riding along; one thread
+//   factors; then per substep the chord, each residual value 2n sweeps and
+//   one kinematics task, then 27 contact chunks, then one assembly. The stop
+//   test is computed alike on every thread from the shared residual, so a
+//   converged lane's warp leaves the chord at once.
+// Every array is sized by the instance's bound M (8 or 16), so the nested
+// duals' stack frame is that of M. The wrapper picks M from the scene's
+// counts and names it at launch (megastep_fwd_m_f32, ...).
 //
 // Work and bound on TactilePush (n = 7, J = NB = 7, 204 contact points,
 // frame_skip K = 5, max_iter 8), per lane. The operations the function
@@ -54,14 +80,31 @@
 // In and out (f32): K2 reads q, qd, u (20 values) and writes q, qd, vs and
 // its residual count (50), 280 B per lane; K3 reads q, qd, u, vs and four
 // cotangents (83) and writes 20, 412 B. At B = 1024 that is ~0.3-0.4 MB
-// (~0.1 us at 3.35 TB/s) against 7.0e9 operations for K2 (0.11 ms at
-// 67 TFLOP/s fp32) and 2.0e10 for K3 (0.30 ms): both are bound by
+// (~0.1 us at 3.35 TB/s) against 7.0e9 operations for K2 (0.104 ms at
+// 67 TFLOP/s fp32) and 2.0e10 for K3 (0.295 ms): both are bound by
 // operations (chip_smoke.py computes each bound from its run's inputs).
-// One thread per lane leaves most of the card idle at B = 1024 (32 warps
-// on 132 SMs), keeps each thread's chain of dual operations serial, repeats
-// the primal in every sweep, and the nested duals spill to local memory;
-// spreading the Jacobian columns over threads is the first step towards
-// that bound, and later work.
+//
+// What bounds them now (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W,
+// f32, B = 1024: K2 6.7 ms, K3 9.4 ms, 1.6 % and 3.1 % of the bound; at
+// B = 16, 2.5 / 3.4 ms). The f32 instance holds 8 lanes per SM (4 blocks of
+// 2 lanes, 47.6 KB of shared memory each; 168 registers a thread), so
+// B = 1024 runs in one wave on 128 of the 132 SMs. Each thread's sweep is a
+// serial chain of nested dual operations on stack arrays (3.2 KB a
+// thread, 820 KB for an SM's 256 threads, more than the L1 that the shared
+// memory leaves; how much that costs is not measured: no profiler of the
+// SM runs there); the sweeps repeat the
+// primal in every direction (the bound counts it once); phase 1 of a K3
+// batch deals 210 tasks in 7 rounds where 6.6 would do; K2's chord is 5 x 9
+// residual values in series, each at least one Lagrangian sweep long.
+// Block shape: 1, 2 and 4 lanes per block ran within 3.3 % of each other
+// at B = 1024 (K2 6.84 / 6.64 / 6.62 ms, K3 9.24 / 9.52 / 9.47 ms) and
+// within 5.4 % at the GD width, B = 16 (K2 2.64 / 2.53 / 2.67 ms, K3
+// 3.50 / 3.36 / 3.54 ms): the scene's staging is small and the SM holds
+// the same 8 lanes either way. 2 lanes per block is the fastest at B = 16
+// and within 0.2 % (K2) and 3.1 % (K3) of the fastest at B = 1024
+// (chip_smoke.py's timings, with the lanes per block then a launch
+// parameter; f32). Every instance holds 2 lanes in the card's 227 KB of
+// shared memory per block (the f64 M = 16 adjoint takes 171 KB).
 
 #include <cuda_runtime.h>
 
@@ -71,11 +114,19 @@ namespace {
 
 using namespace tsim;
 
-constexpr int kMaxN = 16;    // generalized coordinates
-constexpr int kMaxJ = 16;    // joints
-constexpr int kMaxNB = 16;   // bodies
-constexpr int kMaxU = 16;    // controls
-constexpr int kBlock = 32;
+// Two instances per kernel and dtype: every per-lane array is sized by a
+// compile-time bound M on the coordinates, joints, bodies and controls.
+// The launch takes the small one when the scene fits it.
+constexpr int kMaxN = 16;     // the large instance's M (and the host tools')
+constexpr int kSmallN = 8;    // the small one's (TactilePush: 7, 7, 7, 6)
+constexpr int kMaxSeg = 16;   // contact segments
+constexpr int kMaxParam = 16; // contact parameter rows
+constexpr int kWarp = 32;     // threads of one lane's team
+constexpr int kColBatch = 8;  // residual columns evaluated together
+constexpr int kColChunks = 16;  // contact chunks per column (>= kMaxSeg)
+constexpr int kValChunks = 32;  // contact chunks of a residual value
+constexpr int kColChunkLen = 16;  // points per chunk, before doubling
+constexpr int kValChunkLen = 8;
 constexpr int kSegCols = 8;  // row0, n, joint, prim_body, prim_joint, gtype,
                              // param_row, tac0
 
@@ -256,13 +307,13 @@ __device__ void fk_bodies(const Scene<T>& sc, S (*jp)[3],
 
 // -- dynamics (sim/lanes.lagrangian, el_terms, momentum) ---------------------
 // L(q, v) per lane; body velocities are the JVP of FK along v (Dual<D>).
-template <class D, class T>
+template <class D, class T, int M = kMaxN>
 __device__ __noinline__ D lagrangian(const Scene<T>& sc, const D* q,
                                      const D* v) {
   using E = Dual<D>;
-  E qe[kMaxN];
+  E qe[M];
   for (int i = 0; i < sc.n; ++i) qe[i] = E{q[i], v[i]};
-  E jp[kMaxJ][3], jq[kMaxJ][4];
+  E jp[M][3], jq[M][4];
   fk_joints(sc, qe, jp, jq);
   D kin = cst<D>(T(0)), pot = cst<D>(T(0));
 #pragma unroll 1
@@ -299,31 +350,34 @@ __device__ __noinline__ D lagrangian(const Scene<T>& sc, const D* q,
   return kin + pot;   // T - V, V = -sum m g.p
 }
 
-// (dL/dq, dL/dv) by 2n sweeps; dLdq may be null (momentum only)
-template <class S, class T>
-__device__ void el_pair(const Scene<T>& sc, const S* q, const S* v, S* dLdq,
-                        S* p) {
+// One sweep of the Lagrangian: s < n gives dL/dq_s, s >= n gives dL/dv_{s-n}
+template <class S, class T, int M = kMaxN>
+__device__ S el_sweep(const Scene<T>& sc, const S* q, const S* v, int s) {
   using D = Dual<S>;
   const int n = sc.n;
-  D qd[kMaxN], vd[kMaxN];
+  D qd[M], vd[M];
   for (int i = 0; i < n; ++i) {
     qd[i] = D{q[i], cst<S>(T(0))};
     vd[i] = D{v[i], cst<S>(T(0))};
   }
+  if (s < n)
+    qd[s].d = cst<S>(T(1));
+  else
+    vd[s - n].d = cst<S>(T(1));
+  return lagrangian<D, T, M>(sc, qd, vd).d;
+}
+
+// (dL/dq, dL/dv) by 2n sweeps; dLdq may be null (momentum only)
+template <class S, class T, int M = kMaxN>
+__device__ void el_pair(const Scene<T>& sc, const S* q, const S* v, S* dLdq,
+                        S* p) {
+  const int n = sc.n;
   if (dLdq != nullptr) {
 #pragma unroll 1
-    for (int i = 0; i < n; ++i) {
-      qd[i].d = cst<S>(T(1));
-      dLdq[i] = lagrangian(sc, qd, vd).d;
-      qd[i].d = cst<S>(T(0));
-    }
+    for (int i = 0; i < n; ++i) dLdq[i] = el_sweep<S, T, M>(sc, q, v, i);
   }
 #pragma unroll 1
-  for (int i = 0; i < n; ++i) {
-    vd[i].d = cst<S>(T(1));
-    p[i] = lagrangian(sc, qd, vd).d;
-    vd[i].d = cst<S>(T(0));
-  }
+  for (int i = 0; i < n; ++i) p[i] = el_sweep<S, T, M>(sc, q, v, n + i);
 }
 
 // -- geometric velocity kinematics (sim/lanes.dof_frames, joint_twists,
@@ -422,81 +476,109 @@ __device__ void joint_twists(const Scene<T>& sc, S (*w)[3],
   }
 }
 
+// -- the kinematic state a residual evaluation shares -----------------------
+// FK (joint and body frames), the per-dof geometric frames and the joints'
+// world twists at (qn, v).
+template <class S, int M>
+struct Kin {
+  S jp[M][3], jq[M][4], bp[M][3], bq[M][4], w[M][3], c[M][3], om[M][3],
+      be[M][3];
+};
+
+template <class S, class T, int M>
+__device__ __noinline__ void kinematics(const Scene<T>& sc, const S* qn,
+                                        const S* v, Kin<S, M>& k) {
+  fk_joints(sc, qn, k.jp, k.jq);
+  fk_bodies(sc, k.jp, k.jq, k.bp, k.bq);
+  dof_frames(sc, qn, k.jp, k.jq, k.w, k.c);
+  joint_twists(sc, k.w, k.c, v, k.om, k.be);
+}
+
 // -- contact wrenches (K1's law per point; -f and -x x f on the primitive) ----
+// points [k0, k1) of segment s, added into fs (force) and ts (torque)
+template <class S, class T, int M>
+__device__ __noinline__ void contact_chunk(const Scene<T>& sc,
+                                           const Kin<S, M>& kn, int s, int k0,
+                                           int k1, S* fs, S* ts) {
+  const S zero = cst<S>(T(0));
+  const int* sg = sc.seg + kSegCols * s;
+  const int row0 = sg[0], j = sg[2], pb = sg[3], pj = sg[4];
+  const int gt = sg[5];
+  const T* prm = sc.params + 4 * sg[6];
+  S R[3][3], cc[3];
+  const T* sz = sc.bsize;
+  if (gt != kGround) {
+    quat_to_mat(kn.bq[pb], R);
+    for (int i = 0; i < 3; ++i) cc[i] = kn.bp[pb][i];
+    sz = sc.bsize + 3 * pb;
+  } else {
+    for (int a = 0; a < 3; ++a)
+      for (int i = 0; i < 3; ++i) R[a][i] = zero;
+    for (int i = 0; i < 3; ++i) cc[i] = zero;
+  }
+#pragma unroll 1
+  for (int k = k0; k < k1; ++k) {
+    S x[3], vr[3], ox[3], phi, nrm[3], f[3], xf[3];
+    point_world(kn.jp[j], kn.jq[j], sc.xi + 3 * (row0 + k), x);
+    cross3(kn.om[j], x, ox);
+    for (int i = 0; i < 3; ++i) vr[i] = ox[i] + kn.be[j][i];
+    if (gt != kGround) {
+      S op[3];
+      cross3(kn.om[pj], x, op);
+      for (int i = 0; i < 3; ++i) vr[i] = vr[i] - (op[i] + kn.be[pj][i]);
+    }
+    sdf_normal(gt, x, R, cc, sz, sc.gpos, sc.gn, phi, nrm);
+    penalty_force(phi, nrm, vr, prm[0], prm[1], prm[2], prm[3], f);
+    cross3(x, f, xf);
+    for (int i = 0; i < 3; ++i) {
+      fs[i] = fs[i] + f[i];
+      ts[i] = ts[i] + xf[i];
+    }
+  }
+}
+
+// a segment's sums onto its two joints
 template <class S, class T>
-__device__ __noinline__ void contact_wrenches(
-    const Scene<T>& sc, S (*jp)[3], S (*jq)[4], S (*bp)[3],
-    S (*bq)[4], S (*om)[3], S (*be)[3], S (*F)[3],
-    S (*Tau)[3]) {
+__device__ __forceinline__ void add_segment(const Scene<T>& sc, int s,
+                                            const S* fs, const S* ts,
+                                            S (*F)[3], S (*Tau)[3]) {
+  const int* sg = sc.seg + kSegCols * s;
+  const int j = sg[2], pj = sg[4];
+  for (int i = 0; i < 3; ++i) {
+    F[j][i] = F[j][i] + fs[i];
+    Tau[j][i] = Tau[j][i] + ts[i];
+    if (sg[5] != kGround) {
+      F[pj][i] = F[pj][i] - fs[i];
+      Tau[pj][i] = Tau[pj][i] - ts[i];
+    }
+  }
+}
+
+template <class S, class T, int M>
+__device__ void contact_wrenches(const Scene<T>& sc, const Kin<S, M>& kn,
+                                 S (*F)[3], S (*Tau)[3]) {
   const S zero = cst<S>(T(0));
   for (int j = 0; j < sc.J; ++j)
     for (int i = 0; i < 3; ++i) F[j][i] = Tau[j][i] = zero;
 #pragma unroll 1
   for (int s = 0; s < sc.S; ++s) {
-    const int* sg = sc.seg + kSegCols * s;
-    const int row0 = sg[0], np = sg[1], j = sg[2], pb = sg[3], pj = sg[4];
-    const int gt = sg[5];
-    const T* prm = sc.params + 4 * sg[6];
-    S R[3][3], cc[3];
-    const T* sz = sc.bsize;
-    if (gt != kGround) {
-      quat_to_mat(bq[pb], R);
-      for (int i = 0; i < 3; ++i) cc[i] = bp[pb][i];
-      sz = sc.bsize + 3 * pb;
-    } else {
-      for (int a = 0; a < 3; ++a)
-        for (int i = 0; i < 3; ++i) R[a][i] = zero;
-      for (int i = 0; i < 3; ++i) cc[i] = zero;
-    }
     S fs[3] = {zero, zero, zero}, ts[3] = {zero, zero, zero};
-#pragma unroll 1
-    for (int k = 0; k < np; ++k) {
-      S x[3], vr[3], ox[3], phi, nrm[3], f[3], xf[3];
-      point_world(jp[j], jq[j], sc.xi + 3 * (row0 + k), x);
-      cross3(om[j], x, ox);
-      for (int i = 0; i < 3; ++i) vr[i] = ox[i] + be[j][i];
-      if (gt != kGround) {
-        S op[3];
-        cross3(om[pj], x, op);
-        for (int i = 0; i < 3; ++i) vr[i] = vr[i] - (op[i] + be[pj][i]);
-      }
-      sdf_normal(gt, x, R, cc, sz, sc.gpos, sc.gn, phi, nrm);
-      penalty_force(phi, nrm, vr, prm[0], prm[1], prm[2], prm[3], f);
-      cross3(x, f, xf);
-      for (int i = 0; i < 3; ++i) {
-        fs[i] = fs[i] + f[i];
-        ts[i] = ts[i] + xf[i];
-      }
-    }
-    for (int i = 0; i < 3; ++i) {
-      F[j][i] = F[j][i] + fs[i];
-      Tau[j][i] = Tau[j][i] + ts[i];
-      if (gt != kGround) {
-        F[pj][i] = F[pj][i] - fs[i];
-        Tau[pj][i] = Tau[pj][i] - ts[i];
-      }
-    }
+    contact_chunk(sc, kn, s, 0, sc.seg[kSegCols * s + 1], fs, ts);
+    add_segment(sc, s, fs, ts, F, Tau);
   }
 }
 
 // -- the residual (sim/lanes.make_residual) ----------------------------------
-// r = p(qn, v) - p_base - h (dL/dq(qn, v) + Q(qn, v, u))
-template <class S, class T>
-__device__ __noinline__ void residual(const Scene<T>& sc, const S* qn,
+// r = p(qn, v) - p_base - h (dL/dq(qn, v) + Q(qn, v, u)); Q from the
+// springs, limits, motors and the contact wrenches F, Tau per joint
+template <class S, class T, int M>
+__device__ __noinline__ void assemble(const Scene<T>& sc, const S* qn,
                                       const S* v, const T* u,
-                                      const T* pbase, S* r) {
+                                      const T* pbase, const Kin<S, M>& kn,
+                                      S (*F)[3], S (*Tau)[3], const S* dLdq,
+                                      const S* p, S* r) {
   const int n = sc.n;
-  S dLdq[kMaxN], p[kMaxN];
-  el_pair(sc, qn, v, dLdq, p);
-  S jp[kMaxJ][3], jq[kMaxJ][4], bp[kMaxNB][3], bq[kMaxNB][4];
-  fk_joints(sc, qn, jp, jq);
-  fk_bodies(sc, jp, jq, bp, bq);
-  S w[kMaxN][3], c[kMaxN][3], om[kMaxJ][3], be[kMaxJ][3];
-  dof_frames(sc, qn, jp, jq, w, c);
-  joint_twists(sc, w, c, v, om, be);
-  S F[kMaxJ][3], Tau[kMaxJ][3];
-  contact_wrenches(sc, jp, jq, bp, bq, om, be, F, Tau);
-  S Q[kMaxN];
+  S Q[M];
 #pragma unroll 1
   for (int k = 0; k < n; ++k) {
     // springs and limits
@@ -513,15 +595,15 @@ __device__ __noinline__ void residual(const Scene<T>& sc, const S* qn,
 #pragma unroll 1
   for (int k = 0; k < n; ++k) {
     const bool rot = sc.rotm[k] != 0;
+    const S* w = kn.w[k];
     S u3[3];
-    cross3(w[k], c[k], u3);
+    cross3(w, kn.c[k], u3);
     S acc = cst<S>(T(0));
     for (int j = 0; j < sc.J; ++j) {
       if (!sc.anc[k * sc.J + j]) continue;
-      const S wF = w[k][0] * F[j][0] + w[k][1] * F[j][1] + w[k][2] * F[j][2];
+      const S wF = w[0] * F[j][0] + w[1] * F[j][1] + w[2] * F[j][2];
       if (rot) {
-        const S wT =
-            w[k][0] * Tau[j][0] + w[k][1] * Tau[j][1] + w[k][2] * Tau[j][2];
+        const S wT = w[0] * Tau[j][0] + w[1] * Tau[j][1] + w[2] * Tau[j][2];
         const S uF =
             u3[0] * F[j][0] + u3[1] * F[j][1] + u3[2] * F[j][2];
         acc = acc + (wT - uF);
@@ -533,6 +615,20 @@ __device__ __noinline__ void residual(const Scene<T>& sc, const S* qn,
   }
 }
 
+// the whole residual in one thread (the host tools' unit of count)
+template <class S, class T, int M = kMaxN>
+__device__ __noinline__ void residual(const Scene<T>& sc, const S* qn,
+                                      const S* v, const T* u,
+                                      const T* pbase, S* r) {
+  S dLdq[M], p[M];
+  el_pair<S, T, M>(sc, qn, v, dLdq, p);
+  Kin<S, M> kn;
+  kinematics(sc, qn, v, kn);
+  S F[M][3], Tau[M][3];
+  contact_wrenches(sc, kn, F, Tau);
+  assemble(sc, qn, v, u, pbase, kn, F, Tau, dLdq, p, r);
+}
+
 // -- per-lane dense linear algebra (sim/lanes.gauss_factor, gauss_solve,
 //    _ridge) ---------------------------------------------------------------------
 template <class T>
@@ -542,8 +638,8 @@ __device__ float ridge_eps<float>() { return 1e-7f; }
 template <>
 __device__ double ridge_eps<double>() { return 1e-12; }
 
-template <class T>
-__device__ void ridge_factor(T (*A)[kMaxN], int n) {
+template <class T, int M>
+__device__ void ridge_factor(T (*A)[M], int n) {
   T dm = T(0);
   for (int i = 0; i < n; ++i) dm = dm + sabs(A[i][i]);
   const T ridge = ridge_eps<T>() * (dm / T(n) + T(1));
@@ -559,8 +655,8 @@ __device__ void ridge_factor(T (*A)[kMaxN], int n) {
   }
 }
 
-template <class T>
-__device__ void lu_solve(T (*lu)[kMaxN], int n, const T* b, T* x) {
+template <class T, int M>
+__device__ void lu_solve(T (*lu)[M], int n, const T* b, T* x) {
   for (int i = 0; i < n; ++i) {
     T acc = b[i];
     for (int j = 0; j < i; ++j) acc = acc - lu[i][j] * x[j];
@@ -580,15 +676,16 @@ __device__ T norm(const T* r, int n) {
   return ssqrt(s);
 }
 
-// columns of the residual's Jacobians at (qn = q_base + h v, v): for each k,
-// J[:, k] (direction qn: h e_k, v: e_k) and, if Cq, dr/dqn[:, k]
-template <class T>
+// columns of the residual's Jacobians at (qn = q_base + h v, v) in one
+// thread (the host tools' unit of count): for each k, J[:, k] (direction
+// qn: h e_k, v: e_k) and, if Cq, dr/dqn[:, k]
+template <class T, int M>
 __device__ void residual_columns(const Scene<T>& sc, const T* q_base,
                                  const T* v, const T* u, const T* pbase,
-                                 T (*J)[kMaxN], T (*Cq)[kMaxN]) {
+                                 T (*J)[M], T (*Cq)[M]) {
   using D = Dual<T>;
   const int n = sc.n;
-  D qn[kMaxN], vv[kMaxN], r[kMaxN];
+  D qn[M], vv[M], r[M];
   for (int i = 0; i < n; ++i) {
     qn[i] = D{q_base[i] + sc.h * v[i], T(0)};
     vv[i] = D{v[i], T(0)};
@@ -597,205 +694,402 @@ __device__ void residual_columns(const Scene<T>& sc, const T* q_base,
   for (int k = 0; k < n; ++k) {
     qn[k].d = sc.h;
     vv[k].d = T(1);
-    residual(sc, qn, vv, u, pbase, r);
+    residual<D, T, M>(sc, qn, vv, u, pbase, r);
     for (int i = 0; i < n; ++i) J[i][k] = r[i].d;
     vv[k].d = T(0);
     if (Cq != nullptr) {
       qn[k].d = T(1);
-      residual(sc, qn, vv, u, pbase, r);
+      residual<D, T, M>(sc, qn, vv, u, pbase, r);
       for (int i = 0; i < n; ++i) Cq[i][k] = r[i].d;
     }
     qn[k].d = T(0);
   }
 }
 
-// chord iteration with a given factor, best iterate kept (sim/lanes._chord).
-// A lane whose residual norm is at or below tol_eff is frozen: its iterate
-// and residual never change again, so the sweeps that the plain version
-// still runs are skipped. Returns the residual evaluations made.
-template <class T>
-__device__ int chord(const Scene<T>& sc, T (*lu)[kMaxN], const T* q_base,
-                     const T* pbase, const T* u, const T* v0, int max_iter,
-                     T tol, T* v_best) {
-  const int n = sc.n;
-  const T rel = sizeof(T) == 4 ? T(1e-4) : T(1e-7);
-  T qn[kMaxN], v[kMaxN], r[kMaxN], dv[kMaxN];
-  for (int i = 0; i < n; ++i) {
-    v[i] = v_best[i] = v0[i];
-    qn[i] = q_base[i] + sc.h * v[i];
-  }
-  residual(sc, qn, v, u, pbase, r);
-  int evals = 1;
-  T rn = norm(r, n);
-  T rn_best = rn;
-  const T tol_eff = smax2(rel * rn, tol);
-#pragma unroll 1
-  for (int it = 0; it < max_iter; ++it) {
-    if (rn <= tol_eff) break;
-    lu_solve(lu, n, r, dv);
-    for (int i = 0; i < n; ++i) {
-      v[i] = v[i] - dv[i];
-      qn[i] = q_base[i] + sc.h * v[i];
-    }
-    residual(sc, qn, v, u, pbase, r);
-    ++evals;
-    rn = norm(r, n);
-    if (rn < rn_best) {
-      rn_best = rn;
-      for (int i = 0; i < n; ++i) v_best[i] = v[i];
-    }
-  }
-  return evals;
-}
-
-template <class T>
+template <class T, int M = kMaxN>
 __device__ void momentum(const Scene<T>& sc, const T* q, const T* qd, T* p) {
-  el_pair(sc, q, qd, static_cast<T*>(nullptr), p);
+  el_pair<T, T, M>(sc, q, qd, static_cast<T*>(nullptr), p);
 }
 
-// -- K2 ---------------------------------------------------------------------
-template <class T>
-__global__ void __launch_bounds__(kBlock)
-fwd_kernel(const int* __restrict__ itab, const T* __restrict__ ftab, int K,
-           int max_iter, T tol, const T* __restrict__ q0,
-           const T* __restrict__ qd0, const T* __restrict__ u0, int B,
-           T* __restrict__ qo, T* __restrict__ qdo, T* __restrict__ vs,
-           int* __restrict__ nres) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const Scene<T> sc = load_scene(itab, ftab);
-  const int n = sc.n;
-  T q[kMaxN], qd[kMaxN], u[kMaxU], pb[kMaxN], v[kMaxN];
-  for (int i = 0; i < n; ++i) {
-    q[i] = q0[i * B + b];
-    qd[i] = qd0[i * B + b];
+// -- one lane's team ---------------------------------------------------------
+// On the card a team is one warp: for_each deals tasks 0..n-1 to its 32
+// threads in turn (task i to thread i mod 32) and sync() is __syncwarp().
+// Built as host C++ (megastep_host.py) a team is one thread that runs a
+// width of `size` in order: for each rank, that rank's tasks. Every task
+// writes only its own slots, and every combine runs in a fixed order in one
+// task, so the result does not depend on the width, nor on which thread
+// ran which task. Code outside for_each runs on every thread of the team;
+// it only reads the lane's shared state after a sync() and computes the same
+// values on each thread (the chord's norms and its stop test).
+struct Team {
+  int rank, size;
+
+  template <class F>
+  __device__ __forceinline__ void for_each(int n, const F& f) const {
+#ifdef __CUDA_ARCH__
+#pragma unroll 1
+    for (int i = rank; i < n; i += size) f(i);
+#else
+    for (int r = 0; r < size; ++r)
+      for (int i = r; i < n; i += size) f(i);
+#endif
   }
-  for (int i = 0; i < sc.nu; ++i) u[i] = u0[i * B + b];
+
+  __device__ __forceinline__ void sync() const {
+#ifdef __CUDA_ARCH__
+    __syncwarp();
+#endif
+  }
+};
+
+// -- contact chunks: each segment cut into runs of at most P points ----------
+template <class T>
+__device__ int n_chunks(const Scene<T>& sc, int P) {
+  int c = 0;
+  for (int s = 0; s < sc.S; ++s) c += (sc.seg[kSegCols * s + 1] + P - 1) / P;
+  return c;
+}
+
+// the shortest run length from P0 up (doubling) that keeps the chunks
+// within cap (cap >= the number of segments)
+template <class T>
+__device__ int chunk_len(const Scene<T>& sc, int P0, int cap) {
+  int P = P0;
+  while (n_chunks(sc, P) > cap) P *= 2;
+  return P;
+}
+
+template <class T>
+__device__ void chunk_at(const Scene<T>& sc, int P, int idx, int& s, int& k0,
+                         int& k1) {
+  for (s = 0; s < sc.S; ++s) {
+    const int np = sc.seg[kSegCols * s + 1];
+    const int c = (np + P - 1) / P;
+    if (idx < c) {
+      k0 = idx * P;
+      k1 = k0 + P < np ? k0 + P : np;
+      return;
+    }
+    idx -= c;
+  }
+}
+
+// -- a batch of residual evaluations, spread over the team --------------------
+// S = T: residual values; S = Dual<T>: columns. NC evaluations at most.
+template <class S, int M, int NC, int NCH>
+struct ResidualWork {
+  Kin<S, M> kin[NC];
+  S lag[NC][2 * M];       // el_pair's sweeps: dL/dq (0..n-1), p (n..2n-1)
+  S part[NC][NCH][6];     // contact chunk sums: force, torque
+  S r[NC][M];
+};
+
+// (qn, v) lifted to the scalar S: as they are (S = T), or with the tangent
+// (a e_k, b e_k) (S = Dual<T>: residual column k)
+template <class T>
+__device__ __forceinline__ void seed(const T* qn, const T* v, T, T, int,
+                                     int n, T* x, T* y) {
+  for (int i = 0; i < n; ++i) {
+    x[i] = qn[i];
+    y[i] = v[i];
+  }
+}
+template <class T>
+__device__ __forceinline__ void seed(const T* qn, const T* v, T a, T b,
+                                     int k, int n, Dual<T>* x, Dual<T>* y) {
+  for (int i = 0; i < n; ++i) {
+    x[i] = Dual<T>{qn[i], i == k ? a : T(0)};
+    y[i] = Dual<T>{v[i], i == k ? b : T(0)};
+  }
+}
+
+struct NoExtra {
+  __device__ void operator()(int) const {}
+};
+
+// The residual at (qn, v) for columns k0 .. k0 + nc - 1 (S = Dual<T>; nc = 1,
+// k0 unused, for S = T) into w.r, in three phases:
+//   1. nc kinematics tasks, nc x 2n Lagrangian sweeps, and `nextra` tasks of
+//      the caller's (`extra(i)`), all independent;
+//   2. nc x (contact chunks of at most P points);
+//   3. nc assemblies: the chunk sums in segment order, then Q and r.
+template <class S, class T, int M, int NC, int NCH, class Extra>
+__device__ void residual_batch(const Team& tm, const Scene<T>& sc,
+                               ResidualWork<S, M, NC, NCH>& w, int k0, int nc,
+                               const T* qn, const T* v, T a, T b, const T* u,
+                               const T* pbase, int P, int nextra,
+                               const Extra& extra) {
+  const int n = sc.n, ns = 2 * n;
+  tm.for_each(nc + nc * ns + nextra, [&](int t) {
+    S x[M], y[M];
+    if (t < nc) {
+      seed(qn, v, a, b, k0 + t, n, x, y);
+      kinematics(sc, x, y, w.kin[t]);
+    } else if (t < nc + nc * ns) {
+      const int c = (t - nc) / ns, s = (t - nc) % ns;
+      seed(qn, v, a, b, k0 + c, n, x, y);
+      w.lag[c][s] = el_sweep<S, T, M>(sc, x, y, s);
+    } else {
+      extra(t - nc - nc * ns);
+    }
+  });
+  tm.sync();
+  const int nch = n_chunks(sc, P);
+  tm.for_each(nc * nch, [&](int t) {
+    const int c = t / nch, ch = t % nch;
+    int s, p0, p1;
+    chunk_at(sc, P, ch, s, p0, p1);
+    S* o = w.part[c][ch];
+    for (int i = 0; i < 6; ++i) o[i] = cst<S>(T(0));
+    contact_chunk(sc, w.kin[c], s, p0, p1, o, o + 3);
+  });
+  tm.sync();
+  tm.for_each(nc, [&](int c) {
+    const S zero = cst<S>(T(0));
+    S F[M][3], Tau[M][3];
+    for (int j = 0; j < sc.J; ++j)
+      for (int i = 0; i < 3; ++i) F[j][i] = Tau[j][i] = zero;
+    int ch = 0;
+    for (int s = 0; s < sc.S; ++s) {
+      S fs[3] = {zero, zero, zero}, ts[3] = {zero, zero, zero};
+      const int c_s = (sc.seg[kSegCols * s + 1] + P - 1) / P;
+      for (int e = 0; e < c_s; ++e, ++ch)
+        for (int i = 0; i < 3; ++i) {
+          fs[i] = fs[i] + w.part[c][ch][i];
+          ts[i] = ts[i] + w.part[c][ch][3 + i];
+        }
+      add_segment(sc, s, fs, ts, F, Tau);
+    }
+    S x[M], y[M];
+    seed(qn, v, a, b, k0 + c, n, x, y);
+    assemble(sc, x, y, u, pbase, w.kin[c], F, Tau, w.lag[c], w.lag[c] + n,
+             w.r[c]);
+  });
+  tm.sync();
+}
+
+// -- the lane's state in shared memory --------------------------------------
+template <class T, int M>
+using ColumnWork = ResidualWork<Dual<T>, M, kColBatch, kColChunks>;
+template <class T, int M>
+using ValueWork = ResidualWork<T, M, 1, kValChunks>;
+
+template <class T, int M>
+struct FwdLane {
+  T q[M], qd[M], u[M], pb[M], v[M], v_best[M], qn[M], dv[M];
+  T lu[M][M];
+  union {
+    ColumnWork<T, M> col;   // the entry Jacobian
+    ValueWork<T, M> val;    // then the chord's residual values
+  } w;
+};
+
+template <class T, int M>
+struct BwdLane {
+  T qk[M], qdk[M], vst[M], qn[M], pb[M], u[M], g_q[M], g_v[M], g_u[M],
+      gvs[M], lam[M];
+  T JT[M][M], Cq[M][M];
+  T pull[2 * M][M];   // p(q_k, qd_k)'s columns: d p_i along q_c, then qd_c
+  ColumnWork<T, M> col;
+};
+
+// -- K2: one lane -----------------------------------------------------------
+template <class T, int M>
+__device__ void fwd_lane(const Team& tm, const Scene<T>& sc, FwdLane<T, M>& L,
+                         int K, int max_iter, T tol, const T* q0,
+                         const T* qd0, const T* u0, int B, int b, T* qo,
+                         T* qdo, T* vs, int* nres) {
+  const int n = sc.n;
+  const T h = sc.h;
+  tm.for_each(n, [&](int i) {
+    L.q[i] = q0[i * B + b];
+    L.qd[i] = qd0[i * B + b];
+    L.qn[i] = L.q[i] + h * L.qd[i];
+  });
+  tm.for_each(sc.nu, [&](int m) { L.u[m] = u0[m * B + b]; });
+  tm.sync();
+  // the momentum at (q, qd): n sweeps, riding along a batch's first phase
+  auto momentum_sweep = [&](int i) {
+    L.pb[i] = el_sweep<T, T, M>(sc, L.q, L.qd, n + i);
+  };
   // ONE chord factor per env step, at the entry state
-  T lu[kMaxN][kMaxN];
-  momentum(sc, q, qd, pb);
-  residual_columns(sc, q, qd, u, pb, lu, static_cast<T(*)[kMaxN]>(nullptr));
-  ridge_factor(lu, n);
+  const int Pc = chunk_len(sc, kColChunkLen, kColChunks);
+#pragma unroll 1
+  for (int k0 = 0; k0 < n; k0 += kColBatch) {
+    const int nc = n - k0 < kColBatch ? n - k0 : kColBatch;
+    residual_batch(tm, sc, L.w.col, k0, nc, L.qn, L.qd, h, T(1), L.u, L.pb,
+                   Pc, k0 == 0 ? n : 0, momentum_sweep);
+    tm.for_each(n * nc, [&](int t) {
+      L.lu[t % n][k0 + t / n] = L.w.col.r[t / n][t % n].d;
+    });
+    tm.sync();
+  }
+  tm.for_each(1, [&](int) { ridge_factor(L.lu, n); });
+  tm.sync();
+  // frame_skip substeps of chord iteration, best iterate kept
+  // (sim/lanes._chord). A lane whose residual norm is at or below tol_eff
+  // stops: the sweeps that the plain version still runs change nothing.
+  const int Pv = chunk_len(sc, kValChunkLen, kValChunks);
+  const T rel = sizeof(T) == 4 ? T(1e-4) : T(1e-7);
+  const T* r = L.w.val.r[0];
   int evals = 0;
 #pragma unroll 1
   for (int k = 0; k < K; ++k) {
-    momentum(sc, q, qd, pb);
-    evals += chord(sc, lu, q, pb, u, qd, max_iter, tol, v);
-    for (int i = 0; i < n; ++i) {
-      vs[(k * n + i) * B + b] = v[i];
-      q[i] = q[i] + sc.h * v[i];
-      qd[i] = v[i];
+    tm.for_each(n, [&](int i) {
+      L.v[i] = L.v_best[i] = L.qd[i];
+      L.qn[i] = L.q[i] + h * L.v[i];
+    });
+    tm.sync();
+    residual_batch(tm, sc, L.w.val, 0, 1, L.qn, L.v, T(0), T(0), L.u, L.pb,
+                   Pv, n, momentum_sweep);
+    ++evals;
+    T rn = norm(r, n);
+    T rn_best = rn;
+    const T tol_eff = smax2(rel * rn, tol);
+#pragma unroll 1
+    for (int it = 0; it < max_iter; ++it) {
+      if (rn <= tol_eff) break;
+      tm.for_each(1, [&](int) {
+        lu_solve(L.lu, n, r, L.dv);
+        for (int i = 0; i < n; ++i) {
+          L.v[i] = L.v[i] - L.dv[i];
+          L.qn[i] = L.q[i] + h * L.v[i];
+        }
+      });
+      tm.sync();
+      residual_batch(tm, sc, L.w.val, 0, 1, L.qn, L.v, T(0), T(0), L.u,
+                     L.pb, Pv, 0, NoExtra());
+      ++evals;
+      rn = norm(r, n);
+      if (rn < rn_best) {
+        rn_best = rn;
+        tm.for_each(n, [&](int i) { L.v_best[i] = L.v[i]; });
+        tm.sync();
+      }
     }
+    tm.for_each(n, [&](int i) {
+      const T vi = L.v_best[i];
+      vs[(k * n + i) * B + b] = vi;
+      L.q[i] = L.q[i] + h * vi;
+      L.qd[i] = vi;
+    });
+    tm.sync();
   }
-  for (int i = 0; i < n; ++i) {
-    qo[i * B + b] = q[i];
-    qdo[i * B + b] = qd[i];
-  }
-  nres[b] = evals;
+  tm.for_each(n, [&](int i) {
+    qo[i * B + b] = L.q[i];
+    qdo[i * B + b] = L.qd[i];
+  });
+  tm.for_each(1, [&](int) { nres[b] = evals; });
 }
 
-// -- K3 ---------------------------------------------------------------------
-template <class T>
-__global__ void __launch_bounds__(kBlock)
-bwd_kernel(const int* __restrict__ itab, const T* __restrict__ ftab, int K,
-           const T* __restrict__ q0, const T* __restrict__ qd0,
-           const T* __restrict__ u0, const T* __restrict__ vs,
-           const T* __restrict__ gq, const T* __restrict__ gqd,
-           const T* __restrict__ gqp, const T* __restrict__ gqdp, int B,
-           T* __restrict__ gq0, T* __restrict__ gqd0, T* __restrict__ gu0) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const Scene<T> sc = load_scene(itab, ftab);
+// -- K3: one lane -----------------------------------------------------------
+template <class T, int M>
+__device__ void bwd_lane(const Team& tm, const Scene<T>& sc, BwdLane<T, M>& L,
+                         int K, const T* q0, const T* qd0, const T* u0,
+                         const T* vs, const T* gq, const T* gqd,
+                         const T* gqp, const T* gqdp, int B, int b, T* gq0,
+                         T* gqd0, T* gu0) {
   const int n = sc.n, nu = sc.nu;
   const T h = sc.h;
-  T u[kMaxU], g_q[kMaxN], g_v[kMaxN], g_u[kMaxU];
-  for (int i = 0; i < nu; ++i) {
-    u[i] = u0[i * B + b];
-    g_u[i] = T(0);
-  }
-  for (int i = 0; i < n; ++i) {
-    g_q[i] = gq[i * B + b];
-    g_v[i] = gqd[i * B + b];
-  }
+  tm.for_each(n, [&](int i) {
+    L.g_q[i] = gq[i * B + b];
+    L.g_v[i] = gqd[i * B + b];
+  });
+  tm.for_each(nu, [&](int m) {
+    L.u[m] = u0[m * B + b];
+    L.g_u[m] = T(0);
+  });
+  tm.sync();
+  // riding along the first batch of J's columns: the momentum
+  // p_base = p(q_k, qd_k) (n sweeps) and its 2n columns (n sweeps each)
+  auto momentum_sweeps = [&](int t) {
+    if (t < n) {
+      L.pb[t] = el_sweep<T, T, M>(sc, L.qk, L.qdk, n + t);
+      return;
+    }
+    t -= n;
+    const int c = t / n, i = t % n;
+    Dual<T> qq[M], vv[M];
+    for (int j = 0; j < n; ++j) {
+      qq[j] = Dual<T>{L.qk[j], j == c ? T(1) : T(0)};
+      vv[j] = Dual<T>{L.qdk[j], j == c - n ? T(1) : T(0)};
+    }
+    L.pull[c][i] = el_sweep<Dual<T>, T, M>(sc, qq, vv, n + i).d;
+  };
+  const int Pc = chunk_len(sc, kColChunkLen, kColChunks);
 #pragma unroll 1
   for (int k = K - 1; k >= 0; --k) {
     // the substep's entry state (q_k, qd_k), rebuilt from q0 and vs
-    T qk[kMaxN], qdk[kMaxN], vst[kMaxN];
-    for (int i = 0; i < n; ++i) {
-      qk[i] = q0[i * B + b];
-      qdk[i] = qd0[i * B + b];
-    }
-    for (int s = 0; s < k; ++s)
-      for (int i = 0; i < n; ++i) {
+    tm.for_each(n, [&](int i) {
+      T qi = q0[i * B + b], qdi = qd0[i * B + b];
+      for (int s = 0; s < k; ++s) {
         const T vi = vs[(s * n + i) * B + b];
-        qk[i] = qk[i] + h * vi;
-        qdk[i] = vi;
+        qi = qi + h * vi;
+        qdi = vi;
       }
-    for (int i = 0; i < n; ++i) vst[i] = vs[(k * n + i) * B + b];
-    T gvs[kMaxN], pb[kMaxN];
-    for (int i = 0; i < n; ++i) gvs[i] = g_v[i] + h * g_q[i];
-    momentum(sc, qk, qdk, pb);
-    // exact J at v*, and dr/dq_base
-    T Jm[kMaxN][kMaxN], Cq[kMaxN][kMaxN], JT[kMaxN][kMaxN];
-    residual_columns(sc, qk, vst, u, pb, Jm, Cq);
-    for (int i = 0; i < n; ++i)
-      for (int j = 0; j < n; ++j) JT[i][j] = Jm[j][i];
-    ridge_factor(JT, n);
-    T lam[kMaxN];
-    lu_solve(JT, n, gvs, lam);
-    // pull -lambda back: q_base through dr/dqn, p_base (dr/dp_base = -I),
-    // u through the motor rows
-    T bq[kMaxN];
-    for (int j = 0; j < n; ++j) {
-      T acc = T(0);
-      for (int i = 0; i < n; ++i) acc = acc + Cq[i][j] * lam[i];
-      bq[j] = -acc;
-    }
-    for (int m = 0; m < nu; ++m) {
-      const Dual<T> uc =
-          smin2(smax2(Dual<T>{u[m], T(1)}, sc.ulo[m]), sc.uhi[m]);
-      const T dQdu = (sc.umask[m] * sc.kp[m] + (T(1) - sc.umask[m])) * uc.d;
-      g_u[m] = g_u[m] + h * dQdu * lam[sc.motor_dof[m]];
-    }
-    // p_base = momentum(q_k, qd_k): its pullback of lambda, by columns
-    T mq[kMaxN], mv[kMaxN];
-    {
-      using D = Dual<T>;
-      D qq[kMaxN], vv[kMaxN], pp[kMaxN];
-      for (int i = 0; i < n; ++i) {
-        qq[i] = D{qk[i], T(0)};
-        vv[i] = D{qdk[i], T(0)};
-      }
+      const T vk = vs[(k * n + i) * B + b];
+      L.qk[i] = qi;
+      L.qdk[i] = qdi;
+      L.vst[i] = vk;
+      L.qn[i] = qi + h * vk;
+      L.gvs[i] = L.g_v[i] + h * L.g_q[i];
+    });
+    tm.sync();
+    // exact J at v* (kept transposed), then dr/dq_base
 #pragma unroll 1
-      for (int c = 0; c < n; ++c) {
-        qq[c].d = T(1);
-        el_pair(sc, qq, vv, static_cast<D*>(nullptr), pp);
+    for (int k0 = 0; k0 < n; k0 += kColBatch) {
+      const int nc = n - k0 < kColBatch ? n - k0 : kColBatch;
+      residual_batch(tm, sc, L.col, k0, nc, L.qn, L.vst, h, T(1), L.u, L.pb,
+                     Pc, k0 == 0 ? n + 2 * n * n : 0, momentum_sweeps);
+      tm.for_each(n * nc, [&](int t) {
+        L.JT[k0 + t / n][t % n] = L.col.r[t / n][t % n].d;
+      });
+      tm.sync();
+    }
+#pragma unroll 1
+    for (int k0 = 0; k0 < n; k0 += kColBatch) {
+      const int nc = n - k0 < kColBatch ? n - k0 : kColBatch;
+      residual_batch(tm, sc, L.col, k0, nc, L.qn, L.vst, T(1), T(0), L.u,
+                     L.pb, Pc, 0, NoExtra());
+      tm.for_each(n * nc, [&](int t) {
+        L.Cq[t % n][k0 + t / n] = L.col.r[t / n][t % n].d;
+      });
+      tm.sync();
+    }
+    // lambda = J^{-T} (g_v + h g_q); pull -lambda back: q_base through
+    // dr/dqn, p_base (dr/dp_base = -I) through p(q_k, qd_k)'s columns, u
+    // through the motor rows; fold in q_prev / qdot_prev at k = K - 1
+    tm.for_each(1, [&](int) {
+      ridge_factor(L.JT, n);
+      lu_solve(L.JT, n, L.gvs, L.lam);
+      for (int m = 0; m < nu; ++m) {
+        const Dual<T> uc =
+            smin2(smax2(Dual<T>{L.u[m], T(1)}, sc.ulo[m]), sc.uhi[m]);
+        const T dQdu = (sc.umask[m] * sc.kp[m] + (T(1) - sc.umask[m])) * uc.d;
+        L.g_u[m] = L.g_u[m] + h * dQdu * L.lam[sc.motor_dof[m]];
+      }
+      for (int j = 0; j < n; ++j) {
         T acc = T(0);
-        for (int i = 0; i < n; ++i) acc = acc + lam[i] * pp[i].d;
-        mq[c] = acc;
-        qq[c].d = T(0);
-        vv[c].d = T(1);
-        el_pair(sc, qq, vv, static_cast<D*>(nullptr), pp);
-        acc = T(0);
-        for (int i = 0; i < n; ++i) acc = acc + lam[i] * pp[i].d;
-        mv[c] = acc;
-        vv[c].d = T(0);
+        for (int i = 0; i < n; ++i) acc = acc + L.Cq[i][j] * L.lam[i];
+        const T bq = -acc;
+        T mq = T(0), mv = T(0);
+        for (int i = 0; i < n; ++i) mq = mq + L.lam[i] * L.pull[j][i];
+        for (int i = 0; i < n; ++i) mv = mv + L.lam[i] * L.pull[n + j][i];
+        L.g_q[j] = L.g_q[j] + bq + mq;
+        L.g_v[j] = mv;
+        if (k == K - 1) {   // q_prev = q_{K-1}, qdot_prev = qd_{K-1}
+          L.g_q[j] = L.g_q[j] + gqp[j * B + b];
+          L.g_v[j] = L.g_v[j] + gqdp[j * B + b];
+        }
       }
-    }
-    for (int i = 0; i < n; ++i) {
-      g_q[i] = g_q[i] + bq[i] + mq[i];
-      g_v[i] = mv[i];
-      if (k == K - 1) {   // q_prev = q_{K-1}, qdot_prev = qd_{K-1}
-        g_q[i] = g_q[i] + gqp[i * B + b];
-        g_v[i] = g_v[i] + gqdp[i * B + b];
-      }
-    }
+    });
+    tm.sync();
   }
-  for (int i = 0; i < n; ++i) {
-    gq0[i * B + b] = g_q[i];
-    gqd0[i * B + b] = g_v[i];
-  }
-  for (int i = 0; i < nu; ++i) gu0[i * B + b] = g_u[i];
+  tm.for_each(n, [&](int i) {
+    gq0[i * B + b] = L.g_q[i];
+    gqd0[i * B + b] = L.g_v[i];
+  });
+  tm.for_each(nu, [&](int m) { gu0[m * B + b] = L.g_u[m]; });
 }
 
 }  // namespace
@@ -807,8 +1101,92 @@ bwd_kernel(const int* __restrict__ itab, const T* __restrict__ ftab, int K,
 #ifdef __CUDACC__
 namespace {
 
+// -- the kernels: one warp per lane, blockDim.x / 32 lanes per block -------
+// The scene's small tables are staged in shared memory once per block; the
+// contact points stay in device memory (each chunk reads its own).
+template <int M>
+__host__ __device__ constexpr int int_cap() {
+  return 7 + 13 * M + M * M + kSegCols * kMaxSeg;
+}
+template <int M>
+__host__ __device__ constexpr int float_cap() {
+  return 10 + 42 * M + 4 * kMaxParam;
+}
+
+template <class T, int M>
+struct SceneSmem {
+  int ints[int_cap<M>()];
+  T floats[float_cap<M>()];
+};
+
+template <class T, int M>
+__host__ __device__ constexpr size_t scene_bytes() {
+  return (sizeof(SceneSmem<T, M>) + 15) / 16 * 16;
+}
+
+template <class T, int M>
+__device__ Scene<T> stage_scene(const int* itab, const T* ftab,
+                                SceneSmem<T, M>& sm) {
+  const int n = itab[0], J = itab[1], NB = itab[2], nu = itab[3],
+            S = itab[4], Kp = itab[5];
+  const int ni = 7 + 10 * J + NB + nu + kSegCols * S + n * J + n;
+  const int nf = 10 + 19 * J + 14 * NB + 4 * n + 5 * nu + 4 * Kp;
+  for (int i = threadIdx.x; i < ni; i += blockDim.x) sm.ints[i] = itab[i];
+  for (int i = threadIdx.x; i < nf; i += blockDim.x) sm.floats[i] = ftab[i];
+  __syncthreads();
+  Scene<T> sc = load_scene(sm.ints, sm.floats);
+  sc.xi = ftab + nf;
+  return sc;
+}
+
+template <class T, int M>
+__global__ void __launch_bounds__(128)
+fwd_kernel(const int* __restrict__ itab, const T* __restrict__ ftab, int K,
+           int max_iter, T tol, const T* __restrict__ q0,
+           const T* __restrict__ qd0, const T* __restrict__ u0, int B,
+           T* __restrict__ qo, T* __restrict__ qdo, T* __restrict__ vs,
+           int* __restrict__ nres) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lanes = blockDim.x / kWarp, wid = threadIdx.x / kWarp;
+  const int b = blockIdx.x * lanes + wid;
+  const Team tm{static_cast<int>(threadIdx.x % kWarp), kWarp};
+  const Scene<T> sc =
+      stage_scene(itab, ftab, *reinterpret_cast<SceneSmem<T, M>*>(smem));
+  if (b >= B) return;   // the ragged last block
+  auto* lane =
+      reinterpret_cast<FwdLane<T, M>*>(smem + scene_bytes<T, M>()) + wid;
+  fwd_lane(tm, sc, *lane, K, max_iter, tol, q0, qd0, u0, B, b, qo, qdo, vs,
+           nres);
+}
+
+template <class T, int M>
+__global__ void __launch_bounds__(128)
+bwd_kernel(const int* __restrict__ itab, const T* __restrict__ ftab, int K,
+           const T* __restrict__ q0, const T* __restrict__ qd0,
+           const T* __restrict__ u0, const T* __restrict__ vs,
+           const T* __restrict__ gq, const T* __restrict__ gqd,
+           const T* __restrict__ gqp, const T* __restrict__ gqdp, int B,
+           T* __restrict__ gq0, T* __restrict__ gqd0, T* __restrict__ gu0) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lanes = blockDim.x / kWarp, wid = threadIdx.x / kWarp;
+  const int b = blockIdx.x * lanes + wid;
+  const Team tm{static_cast<int>(threadIdx.x % kWarp), kWarp};
+  const Scene<T> sc =
+      stage_scene(itab, ftab, *reinterpret_cast<SceneSmem<T, M>*>(smem));
+  if (b >= B) return;
+  auto* lane =
+      reinterpret_cast<BwdLane<T, M>*>(smem + scene_bytes<T, M>()) + wid;
+  bwd_lane(tm, sc, *lane, K, q0, qd0, u0, vs, gq, gqd, gqp, gqdp, B, b, gq0,
+           gqd0, gu0);
+}
+
+
+// -- launches ---------------------------------------------------------------
+constexpr int kLanes = 2;   // lanes (warps) per block; see the note on top
+
 // Local memory: the nested duals need a deep per-thread stack; raise the
-// device's stack limit to the kernel's frame once.
+// device's stack limit to the kernel's frame (it holds for every resident
+// thread, so the frame is kept small: arrays sized by the instance's M).
 template <class F>
 cudaError_t fit_stack(F* kernel) {
   cudaFuncAttributes attr;
@@ -822,47 +1200,192 @@ cudaError_t fit_stack(F* kernel) {
   return err;
 }
 
-template <class T>
-int launch_fwd(const int* itab, const T* ftab, int K, int max_iter, T tol,
-               const T* q0, const T* qd0, const T* u, int B, T* qo, T* qdo,
-               T* vs, int* nres, void* stream) {
-  cudaError_t err = fit_stack(fwd_kernel<T>);
+// the stack, and the dynamic shared memory above the 48 KB default
+template <class F>
+cudaError_t prepare(F* kernel, size_t smem) {
+  cudaError_t err = fit_stack(kernel);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <class T, int M>
+int launch_fwd_m(const int* itab, const T* ftab, int K, int max_iter, T tol,
+                 const T* q0, const T* qd0, const T* u, int B, T* qo, T* qdo,
+                 T* vs, int* nres, cudaStream_t stream) {
+  const size_t smem = scene_bytes<T, M>() + kLanes * sizeof(FwdLane<T, M>);
+  cudaError_t err = prepare(fwd_kernel<T, M>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(kBlock), grid((B + kBlock - 1) / kBlock);
-  fwd_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 block(kLanes * kWarp), grid((B + kLanes - 1) / kLanes);
+  fwd_kernel<T, M><<<grid, block, smem, stream>>>(
       itab, ftab, K, max_iter, tol, q0, qd0, u, B, qo, qdo, vs, nres);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class T>
-int launch_bwd(const int* itab, const T* ftab, int K, const T* q0,
-               const T* qd0, const T* u, const T* vs, const T* gq,
-               const T* gqd, const T* gqp, const T* gqdp, int B, T* gq0,
-               T* gqd0, T* gu, void* stream) {
-  cudaError_t err = fit_stack(bwd_kernel<T>);
+template <class T, int M>
+int launch_bwd_m(const int* itab, const T* ftab, int K, const T* q0,
+                 const T* qd0, const T* u, const T* vs, const T* gq,
+                 const T* gqd, const T* gqp, const T* gqdp, int B, T* gq0,
+                 T* gqd0, T* gu, cudaStream_t stream) {
+  const size_t smem = scene_bytes<T, M>() + kLanes * sizeof(BwdLane<T, M>);
+  cudaError_t err = prepare(bwd_kernel<T, M>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(kBlock), grid((B + kBlock - 1) / kBlock);
-  bwd_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 block(kLanes * kWarp), grid((B + kLanes - 1) / kLanes);
+  bwd_kernel<T, M><<<grid, block, smem, stream>>>(
       itab, ftab, K, q0, qd0, u, vs, gq, gqd, gqp, gqdp, B, gq0, gqd0, gu);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+// The instance of bound M (kSmallN or kMaxN). The caller has checked the
+// scene's counts against it: the launch knows the scene only by its device
+// tables (ops/megastep.py MegaStep.instance picks M).
+template <class T>
+int launch_fwd(int M, const int* itab, const T* ftab, int K, int max_iter,
+               T tol, const T* q0, const T* qd0, const T* u, int B, T* qo,
+               T* qdo, T* vs, int* nres, void* stream_) {
+  const auto stream = static_cast<cudaStream_t>(stream_);
+  if (M == kSmallN)
+    return launch_fwd_m<T, kSmallN>(itab, ftab, K, max_iter, tol, q0, qd0, u,
+                                    B, qo, qdo, vs, nres, stream);
+  if (M == kMaxN)
+    return launch_fwd_m<T, kMaxN>(itab, ftab, K, max_iter, tol, q0, qd0, u, B,
+                                  qo, qdo, vs, nres, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
-// Launch on `stream`; each returns cudaGetLastError() (0 = launched).
-extern "C" int megastep_limits(int* out) {
-  out[0] = kMaxN; out[1] = kMaxJ; out[2] = kMaxNB; out[3] = kMaxU;
-  out[4] = kBlock;
+template <class T>
+int launch_bwd(int M, const int* itab, const T* ftab, int K, const T* q0,
+               const T* qd0, const T* u, const T* vs, const T* gq,
+               const T* gqd, const T* gqp, const T* gqdp, int B, T* gq0,
+               T* gqd0, T* gu, void* stream_) {
+  const auto stream = static_cast<cudaStream_t>(stream_);
+  if (M == kSmallN)
+    return launch_bwd_m<T, kSmallN>(itab, ftab, K, q0, qd0, u, vs, gq, gqd,
+                                    gqp, gqdp, B, gq0, gqd0, gu, stream);
+  if (M == kMaxN)
+    return launch_bwd_m<T, kMaxN>(itab, ftab, K, q0, qd0, u, vs, gq, gqd, gqp,
+                                  gqdp, B, gq0, gqd0, gu, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// what the compiler and the card make of one instance:
+//   out = [M, bytes per scalar, registers per thread, local (stack) bytes
+//          per thread, static shared bytes, dynamic shared bytes per block,
+//          lanes per block, resident blocks per SM, the device's stack
+//          limit per thread in bytes]
+template <class Lane, class F>
+int instance_info(F* kernel, int M, int tbytes, size_t scene, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = scene + kLanes * sizeof(Lane);
+  err = prepare(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kLanes * kWarp, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  size_t stack = 0;
+  err = cudaDeviceGetLimit(&stack, cudaLimitStackSize);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int v[9] = {M, tbytes, a.numRegs, static_cast<int>(a.localSizeBytes),
+                    static_cast<int>(a.sharedSizeBytes),
+                    static_cast<int>(smem), kLanes, blocks,
+                    static_cast<int>(stack)};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
   return 0;
 }
 
+template <class T, int M>
+int info_of(bool bwd, int* out) {
+  return bwd ? instance_info<BwdLane<T, M>>(bwd_kernel<T, M>, M, sizeof(T),
+                                            scene_bytes<T, M>(), out)
+             : instance_info<FwdLane<T, M>>(fwd_kernel<T, M>, M, sizeof(T),
+                                            scene_bytes<T, M>(), out);
+}
+
+}  // namespace
+
+// Launch on `stream`; each returns cudaGetLastError() (0 = launched). The
+// caller checks the scene against megastep_limits: a kernel handed a scene
+// above its instance's bounds overruns its shared memory.
+// out = [largest n, J, NB, nu (the large instance's M), threads per block,
+//        largest number of contact segments, of contact parameter rows,
+//        the small instance's M]
+extern "C" int megastep_limits(int* out) {
+  out[0] = out[1] = out[2] = out[3] = kMaxN;
+  out[4] = kLanes * kWarp;
+  out[5] = kMaxSeg;
+  out[6] = kMaxParam;
+  out[7] = kSmallN;
+  return 0;
+}
+
+// which: bit 0 the adjoint (K3), bit 1 double, bit 2 the large instance
+extern "C" int megastep_kernel_info(int which, int* out) {
+  const bool bwd = which & 1;
+  switch (which >> 1) {
+    case 0: return info_of<float, kSmallN>(bwd, out);
+    case 1: return info_of<double, kSmallN>(bwd, out);
+    case 2: return info_of<float, kMaxN>(bwd, out);
+    case 3: return info_of<double, kMaxN>(bwd, out);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The instance named by its bound M: megastep_limits' out[7] (small) or
+// out[0] (large).
+extern "C" int megastep_fwd_m_f32(int M, const int* itab, const float* ftab,
+                                  int K, int max_iter, float tol,
+                                  const float* q0, const float* qd0,
+                                  const float* u, int B, float* qo,
+                                  float* qdo, float* vs, int* nres,
+                                  void* stream) {
+  return launch_fwd<float>(M, itab, ftab, K, max_iter, tol, q0, qd0, u, B,
+                           qo, qdo, vs, nres, stream);
+}
+
+extern "C" int megastep_fwd_m_f64(int M, const int* itab, const double* ftab,
+                                  int K, int max_iter, double tol,
+                                  const double* q0, const double* qd0,
+                                  const double* u, int B, double* qo,
+                                  double* qdo, double* vs, int* nres,
+                                  void* stream) {
+  return launch_fwd<double>(M, itab, ftab, K, max_iter, tol, q0, qd0, u, B,
+                            qo, qdo, vs, nres, stream);
+}
+
+extern "C" int megastep_bwd_m_f32(int M, const int* itab, const float* ftab,
+                                  int K, const float* q0, const float* qd0,
+                                  const float* u, const float* vs,
+                                  const float* gq, const float* gqd,
+                                  const float* gqp, const float* gqdp, int B,
+                                  float* gq0, float* gqd0, float* gu,
+                                  void* stream) {
+  return launch_bwd<float>(M, itab, ftab, K, q0, qd0, u, vs, gq, gqd, gqp,
+                           gqdp, B, gq0, gqd0, gu, stream);
+}
+
+extern "C" int megastep_bwd_m_f64(int M, const int* itab, const double* ftab,
+                                  int K, const double* q0, const double* qd0,
+                                  const double* u, const double* vs,
+                                  const double* gq, const double* gqd,
+                                  const double* gqp, const double* gqdp,
+                                  int B, double* gq0, double* gqd0,
+                                  double* gu, void* stream) {
+  return launch_bwd<double>(M, itab, ftab, K, q0, qd0, u, vs, gq, gqd, gqp,
+                            gqdp, B, gq0, gqd0, gu, stream);
+}
+
+// The large instance, which takes every scene within megastep_limits.
 extern "C" int megastep_fwd_f32(const int* itab, const float* ftab, int K,
                                 int max_iter, float tol, const float* q0,
                                 const float* qd0, const float* u, int B,
                                 float* qo, float* qdo, float* vs, int* nres,
                                 void* stream) {
-  return launch_fwd<float>(itab, ftab, K, max_iter, tol, q0, qd0, u, B, qo,
-                           qdo, vs, nres, stream);
+  return launch_fwd<float>(kMaxN, itab, ftab, K, max_iter, tol, q0, qd0, u, B,
+                           qo, qdo, vs, nres, stream);
 }
 
 extern "C" int megastep_fwd_f64(const int* itab, const double* ftab, int K,
@@ -870,8 +1393,8 @@ extern "C" int megastep_fwd_f64(const int* itab, const double* ftab, int K,
                                 const double* qd0, const double* u, int B,
                                 double* qo, double* qdo, double* vs,
                                 int* nres, void* stream) {
-  return launch_fwd<double>(itab, ftab, K, max_iter, tol, q0, qd0, u, B, qo,
-                            qdo, vs, nres, stream);
+  return launch_fwd<double>(kMaxN, itab, ftab, K, max_iter, tol, q0, qd0, u,
+                            B, qo, qdo, vs, nres, stream);
 }
 
 extern "C" int megastep_bwd_f32(const int* itab, const float* ftab, int K,
@@ -881,8 +1404,8 @@ extern "C" int megastep_bwd_f32(const int* itab, const float* ftab, int K,
                                 const float* gqp, const float* gqdp, int B,
                                 float* gq0, float* gqd0, float* gu,
                                 void* stream) {
-  return launch_bwd<float>(itab, ftab, K, q0, qd0, u, vs, gq, gqd, gqp, gqdp,
-                           B, gq0, gqd0, gu, stream);
+  return launch_bwd<float>(kMaxN, itab, ftab, K, q0, qd0, u, vs, gq, gqd, gqp,
+                           gqdp, B, gq0, gqd0, gu, stream);
 }
 
 extern "C" int megastep_bwd_f64(const int* itab, const double* ftab, int K,
@@ -892,7 +1415,7 @@ extern "C" int megastep_bwd_f64(const int* itab, const double* ftab, int K,
                                 const double* gqp, const double* gqdp, int B,
                                 double* gq0, double* gqd0, double* gu,
                                 void* stream) {
-  return launch_bwd<double>(itab, ftab, K, q0, qd0, u, vs, gq, gqd, gqp,
-                            gqdp, B, gq0, gqd0, gu, stream);
+  return launch_bwd<double>(kMaxN, itab, ftab, K, q0, qd0, u, vs, gq, gqd,
+                            gqp, gqdp, B, gq0, gqd0, gu, stream);
 }
 #endif  // __CUDACC__

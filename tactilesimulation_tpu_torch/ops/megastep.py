@@ -16,9 +16,12 @@ model is baked in:
   folded in at the last substep.
 
 Routes: a CUDA tensor goes to ``csrc/megastep.cu`` (nvcc at first use,
-ctypes; float32 and float64 instances) and anything the kernels do not take
-raises; a CPU tensor goes to the plain PyTorch version (``fwd_ref``,
-``bwd_ref``), which is ``sim/lanes.py``'s residual, chord and exact adjoint
+ctypes; one warp per lane; float32 and float64, each in a small instance
+for scenes of up to 8 coordinates, joints, bodies and controls and a large
+one for up to 16, which ``MegaStep.instance`` picks from the scene's
+counts) and anything the kernels do not take raises (``limits()``);
+a CPU tensor goes to the plain PyTorch version (``fwd_ref``, ``bwd_ref``),
+which is ``sim/lanes.py``'s residual, chord and exact adjoint
 with the megastep's tolerance floor max(solver_tol, 1e-7) in every dtype
 and its contact-torque convention (``moving_point``: the primitive side's
 torque at the moving contact point, so J and the adjoint are the
@@ -218,16 +221,54 @@ def _library():
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         for tag, scalar in _LIB_DTYPES.values():
-            fwd = getattr(lib, f"megastep_fwd_{tag}")
-            fwd.argtypes = [p, p, i, i, scalar, p, p, p, i, p, p, p, p, p]
-            fwd.restype = i
-            bwd = getattr(lib, f"megastep_bwd_{tag}")
-            bwd.argtypes = [p, p, i] + [p] * 8 + [i, p, p, p, p]
-            bwd.restype = i
-        lib.megastep_limits.argtypes = [p]
-        lib.megastep_limits.restype = i
+            fwd = [p, p, i, i, scalar, p, p, p, i, p, p, p, p, p]
+            bwd = [p, p, i] + [p] * 8 + [i, p, p, p, p]
+            for name, args in ((f"megastep_fwd_{tag}", fwd),
+                               (f"megastep_fwd_m_{tag}", [i] + fwd),
+                               (f"megastep_bwd_{tag}", bwd),
+                               (f"megastep_bwd_m_{tag}", [i] + bwd)):
+                getattr(lib, name).argtypes = args
+                getattr(lib, name).restype = i
+        for name, args in (("megastep_limits", [p]),
+                           ("megastep_kernel_info", [i, p])):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = i
         lib._typed = True
     return lib
+
+
+def limits() -> dict:
+    """What the kernels' largest instance takes, and the small instance's
+    bound."""
+    out = (ctypes.c_int * 8)()
+    _library().megastep_limits(out)
+    n, J, NB, nu, _, S, Kp, small = out
+    return dict(n=n, joints=J, bodies=NB, controls=nu, segments=S,
+                param_rows=Kp, small_instance=small)
+
+
+INFO_FIELDS = ("M", "scalar_bytes", "registers", "local_bytes",
+               "static_shared_bytes", "dynamic_shared_bytes",
+               "lanes_per_block", "blocks_per_sm", "stack_limit_bytes")
+
+
+def kernel_info() -> dict:
+    """Per instance ("K2 f32 M=8", ...): what the compiler made of it
+    (cudaFuncGetAttributes), the shared memory of a block and the resident
+    blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib, res = _library(), {}
+    for which in range(8):
+        out = (ctypes.c_int * len(INFO_FIELDS))()
+        err = lib.megastep_kernel_info(which, out)
+        if err != 0:
+            raise RuntimeError(f"megastep_kernel_info({which}): CUDA error "
+                               f"{err}")
+        d = dict(zip(INFO_FIELDS, out))
+        name = (f"{'K3' if which & 1 else 'K2'} "
+                f"{'f32' if d['scalar_bytes'] == 4 else 'f64'} M={d['M']}")
+        res[name] = d
+    return res
 
 
 @dataclasses.dataclass
@@ -264,17 +305,25 @@ class MegaStep:
                        u, vs, gq, gqd, gqp, gqdp)
 
     # -- kernels -------------------------------------------------------------
+    def instance(self) -> int:
+        """The bound M of the kernels' instance that takes this scene: the
+        small one where its counts fit, else the large one."""
+        lim, t = limits(), self.tables
+        small = lim["small_instance"]
+        return small if max(t.n, t.J, t.NB, t.nu) <= small else lim["n"]
+
     def _check(self, tensors, shapes):
         first = tensors[0]
         if first.dtype not in _LIB_DTYPES:
             raise TypeError(f"megastep takes float32 or float64, not "
                             f"{first.dtype}")
         t = self.tables
-        lim = (ctypes.c_int * 5)()
-        _library().megastep_limits(lim)
-        if t.n > lim[0] or t.J > lim[1] or t.NB > lim[2] or t.nu > lim[3]:
-            raise ValueError("megastep: scene larger than the kernels' "
-                             f"limits {tuple(lim)[:4]}")
+        lim = limits()
+        if (t.n > lim["n"] or t.J > lim["joints"] or t.NB > lim["bodies"]
+                or t.nu > lim["controls"] or len(t.segments) > lim["segments"]
+                or len(t.params) > lim["param_rows"]):
+            raise ValueError(f"megastep: scene larger than the kernels' "
+                             f"limits {lim}")
         for name, a, want in zip(shapes, tensors, shapes.values()):
             if a.device != first.device or a.dtype != first.dtype:
                 raise ValueError(f"{name}: {a.device} {a.dtype}, expected "
@@ -297,10 +346,11 @@ class MegaStep:
         nres = torch.empty(B, dtype=torch.int32, device=q.device)
         if B:
             tag = _LIB_DTYPES[q.dtype][0]
-            err = getattr(_library(), f"megastep_fwd_{tag}")(
-                ints.data_ptr(), floats.data_ptr(), K, self.max_iter,
-                self.tol, q.data_ptr(), qd.data_ptr(), u.data_ptr(), B,
-                qo.data_ptr(), qdo.data_ptr(), vs.data_ptr(), nres.data_ptr(),
+            err = getattr(_library(), f"megastep_fwd_m_{tag}")(
+                self.instance(), ints.data_ptr(), floats.data_ptr(), K,
+                self.max_iter, self.tol, q.data_ptr(), qd.data_ptr(),
+                u.data_ptr(), B, qo.data_ptr(), qdo.data_ptr(),
+                vs.data_ptr(), nres.data_ptr(),
                 torch.cuda.current_stream(q.device).cuda_stream)
             if err != 0:
                 raise RuntimeError(f"K2 launch failed: CUDA error {err}")
@@ -321,8 +371,8 @@ class MegaStep:
         gu = torch.empty_like(u)
         if B:
             tag = _LIB_DTYPES[q.dtype][0]
-            err = getattr(_library(), f"megastep_bwd_{tag}")(
-                ints.data_ptr(), floats.data_ptr(), K,
+            err = getattr(_library(), f"megastep_bwd_m_{tag}")(
+                self.instance(), ints.data_ptr(), floats.data_ptr(), K,
                 *(a.data_ptr() for a in (q, qd, u, vs, gq, gqd, gqp, gqdp)),
                 B, gq0.data_ptr(), gqd0.data_ptr(), gu.data_ptr(),
                 torch.cuda.current_stream(q.device).cuda_stream)

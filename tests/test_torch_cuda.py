@@ -132,15 +132,51 @@ def _rel(a, b):
     return float((a.double() - b).abs().max()) / float(b.abs().max())
 
 
+def _lane_err(got, want):
+    """Per lane, the largest error of any output over that output's scale
+    (its largest magnitude over all lanes, as in _rel)."""
+    err = torch.zeros(want[0].shape[-1], dtype=torch.float64,
+                      device=want[0].device)
+    for a, b in zip(got, want):
+        e = (a.double() - b).abs().reshape(-1, b.shape[-1]).max(0).values
+        err = torch.maximum(err, e / b.abs().max())
+    return err
+
+
+def _jumping(op, q, v, u, want, lanes, draws=64):
+    """Of ``lanes``, those where the plain version itself moves by more
+    than 1e-9 of scale when (q, qdot, u) change by 1e-15 of themselves (any
+    of ``draws`` random changes): K2's function jumps there at round-off, as
+    the chord's stop and best iterate flip (CPU witness:
+    tests/test_torch_megastep.py, test_k2_jumps_at_round_off_on_a_violent_
+    lane)."""
+    if not lanes:
+        return []
+    idx = torch.tensor(lanes, device=q.device).repeat_interleave(draws)
+    rng = np.random.RandomState(7)
+    args = [(a[:, idx] * (1 + 1e-15 * torch.as_tensor(
+        rng.randn(a.shape[0], len(idx)), dtype=a.dtype, device=a.device)))
+        .contiguous() for a in (q, v, u)]
+    moved = torch.zeros(len(lanes), dtype=torch.bool, device=q.device)
+    for a, b in zip(op.fwd_ref(*args), want):
+        jump = (a - b[..., idx]).abs() > 1e-9 * b.abs().max()
+        moved |= jump.reshape(-1, len(lanes), draws).any(-1).any(0)
+    return [lane for lane, m in zip(lanes, moved.tolist()) if m]
+
+
 # on violent contact states: float64 against the plain version, the same
-# algorithm to round-off; float32, the kernel and the f32 plain version each
-# against the f64 plain version, the kernel within a small multiple of the
-# plain version's error (the tolerances and their reasons: chip_smoke.py
-# K23_F64_TOL, K23_F32_VS_F64)
+# algorithm to round-off, on every lane but those where the plain version
+# itself jumps at round-off (each lane off its plain version must be one of
+# them; printed; at most 5 % of the lanes); float32, the kernel and the f32
+# plain version each against the f64 plain version, the kernel within a
+# small multiple of the plain version's error (the tolerances and their
+# reasons: chip_smoke.py K23_F64_TOL, K23_F32_VS_F64). B = 1 and 33 leave a
+# ragged last block; 16 is the GD width; 1024 the main path's.
+@pytest.mark.parametrize("Bm", [1, 16, 33, 1024])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
                          ids=["f64", "f32"])
-def test_k2_k3_match_plain_version(card, dtype):
-    op, q, v, u, g = _mega_case(card, dtype, 32)
+def test_k2_k3_match_plain_version(card, dtype, Bm):
+    op, q, v, u, g = _mega_case(card, dtype, Bm)
     got = op.run_fwd(q, v, u)
     want = op.fwd_ref(q, v, u)
     grads = op.run_bwd(q, v, u, want[2], *g)
@@ -149,11 +185,17 @@ def test_k2_k3_match_plain_version(card, dtype):
     assert (op.fwd_launches, op.bwd_launches) == (1, 1)
     assert all(bool(torch.isfinite(a).all()) for a in got + grads)
     if dtype == torch.float64:
-        for tol, pairs in ((K23_F64_TOL["fwd"], zip(got, want)),
-                           (K23_F64_TOL["bwd"], zip(grads, ref))):
-            assert all(_rel(a, b) <= tol for a, b in pairs)
+        off = ((_lane_err(got, want) > K23_F64_TOL["fwd"])
+               | (_lane_err(grads, ref) > K23_F64_TOL["bwd"]))
+        off = torch.nonzero(off).flatten().tolist()
+        jumping = _jumping(op, q, v, u, want, off)
+        errs = [_rel(a, b) for a, b in zip(got + grads, want + ref)]
+        print(f"f64 B={Bm}: lanes off the plain version {off}, of which the "
+              f"plain version jumps at round-off on {jumping}; rel err on "
+              f"all lanes {errs}")
+        assert jumping == off and len(off) <= 0.05 * Bm
         return
-    op64, *x64 = _mega_case(card, torch.float64, 32)
+    op64, *x64 = _mega_case(card, torch.float64, Bm)
     x64 = [x64[0], x64[1], x64[2]] + x64[3]
     ref64 = op64.fwd_ref(*x64[:3])
     y64 = x64[:3] + [ref64[2]] + x64[3:]
@@ -164,6 +206,48 @@ def test_k2_k3_match_plain_version(card, dtype):
             (op.run_bwd(*y32), op.bwd_ref(*y32), op64.bwd_ref(*y64))):
         for k, p, e in zip(kern, plain, exact):
             assert _rel(k, e) <= mult * _rel(p, e) + floor
+
+
+def test_k2_k3_large_instance_matches_small(card, monkeypatch):
+    """The instance for scenes of up to 16 coordinates, joints, bodies and
+    controls, forced onto TactilePush, against the small instance that the
+    wrapper picks: the same arithmetic in other array sizes, float64 to
+    round-off."""
+    op, q, v, u, g = _mega_case(card, torch.float64, 33)
+    big, *_ = _mega_case(card, torch.float64, 33)
+    lim = megastep.limits()
+    assert op.instance() == lim["small_instance"] < lim["n"]
+    monkeypatch.setattr(big, "instance", lambda: lim["n"])
+    small = op.run_fwd(q, v, u)
+    large = big.run_fwd(q, v, u)
+    for a, b in zip(large, small):
+        assert _rel(a, b) <= 1e-12
+    sg = op.run_bwd(q, v, u, small[2], *g)
+    lg = big.run_bwd(q, v, u, small[2], *g)
+    for a, b in zip(lg, sg):
+        assert _rel(a, b) <= 1e-12
+
+
+def test_k2_k3_launch_nothing_at_b0(card):
+    op, q, v, u, g = _mega_case(card, torch.float32, 0)
+    qo, qdo, vs = op.run_fwd(q, v, u)
+    grads = op.run_bwd(q, v, u, vs, *g)
+    assert (op.fwd_launches, op.bwd_launches) == (0, 0)
+    assert tuple(vs.shape) == (5, 7, 0)
+    assert [tuple(x.shape) for x in grads] == [(7, 0), (7, 0), (6, 0)]
+
+
+def test_k2_k3_refuse_a_scene_above_the_largest_instance(card):
+    op, q, v, u, g = _mega_case(card, torch.float32, 8)
+    lim = megastep.limits()
+    op.tables.J = lim["joints"] + 1
+    with pytest.raises(ValueError, match="limits"):
+        op.run_fwd(q, v, u)
+    op.tables.J = 7
+    op.tables.segments = op.tables.segments * (lim["segments"] // 3 + 1)
+    with pytest.raises(ValueError, match="limits"):
+        op.run_bwd(q, v, u, torch.zeros((5, 7, 8), device=card), *g)
+    assert (op.fwd_launches, op.bwd_launches) == (0, 0)
 
 
 def test_k2_k3_reject_what_they_do_not_take(card):

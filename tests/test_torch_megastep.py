@@ -16,14 +16,16 @@
   gradients w.r.t. (q0, qd0, u) to rtol 2e-6, as tests/test_megastep.py
   pins the JAX pair. The loss reads q_prev and qdot_prev too;
 - the step refuses a model other than the one it was built with;
-- the kernels' own source (csrc/megastep.cu, built as host C++ in float64
-  by ``megastep_host.py``) against the plain version on contact states
-  where the chord does and does not converge: K2 to 1e-9 and K3 to 1e-7
-  of scale, the same bars as on the card (the same algorithm in another
-  summation order);
+- the kernels' own source (csrc/megastep.cu, its lane routines built as
+  host C++ in float64 by ``megastep_host.py``, the team dealing tasks as a
+  warp does) against the plain version on contact states where the chord
+  does and does not converge: K2 to 1e-9 and K3 to 1e-7 of scale, the same
+  bars as on the card (the same algorithm in another summation order); and
+  the team at widths 1, 7 and 32, equal bit for bit;
 - the structure the operation count of K2/K3's bound assumes
   (``megastep_host.py``: how many Lagrangians and residuals each sweeping
-  function of the CUDA source runs), so that the count cannot go stale.
+  function of the CUDA source runs), so that the count cannot go stale, and
+  the needed units themselves at ``python megastep_host.py``'s inputs.
 """
 
 import dataclasses
@@ -181,22 +183,44 @@ def test_mega_step_refuses_another_model(scene):
                                                              dtype=q.dtype))
 
 
-def test_kernel_source_matches_plain_version_on_host(scene):
+@pytest.fixture(scope="module")
+def host(scene):
+    """The kernels' lane routines built as host C++ (one g++ build)."""
     if not megastep_host.available():
         pytest.skip("needs g++ to build the kernels' device code as host C++")
-    st, mt = scene["st"], scene["mt"]
-    op = megastep.MegaStep(st, mt, 5, 8)
-    host = megastep_host.HostMegastep(op)
+    op = megastep.MegaStep(scene["st"], scene["mt"], 5, 8)
+    return megastep_host.HostMegastep(op)
+
+
+@pytest.fixture(scope="module")
+def counter():
+    """The counting build of the kernels' source (one g++ build)."""
+    if not megastep_host.available():
+        pytest.skip("needs g++ to build the kernels' device code as host C++")
+    return megastep_host.Counter()
+
+
+def _host_case(mt):
+    """Violent and resting contact, a control on its clip bound, and four
+    cotangents: (q, v, u) and g, float64 tensors of 2 B lanes."""
     rng = np.random.RandomState(6)
     q, v = contact_state("tactile_push", mt.q_init.numpy(), B, seed=1)
     rq, rv, ru = _resting_contact(mt, 4)
-    q = np.concatenate([q, rq], axis=1)      # violent and resting contact
+    q = np.concatenate([q, rq], axis=1)
     v = np.concatenate([v, rv], axis=1)
     u = np.concatenate([0.5 * rng.randn(6, B), ru], axis=1)
-    u[0, 0] = 1.0                            # a control on its clip bound
+    u[0, 0] = 1.0
     q, v, u = (_t(a) for a in (q, v, u))
-    g = [_t(rng.randn(*q.shape)) for _ in range(4)]
+    return (q, v, u), [_t(rng.randn(*q.shape)) for _ in range(4)]
+
+
+def test_kernel_source_matches_plain_version_on_host(scene, host):
+    """The team orchestration of K2/K3 (a warp's dealing of tasks, width
+    32) against the plain version: K2 to 1e-9 and K3 to 1e-7 of scale."""
+    (q, v, u), g = _host_case(scene["mt"])
+    op = host.op
     want = op.fwd_ref(q, v, u)
+    host.width = 32
     got = host.run_fwd(q, v, u)
     for a, b in zip(got, want):
         _close(a, b.numpy(), 1e-9)
@@ -205,16 +229,80 @@ def test_kernel_source_matches_plain_version_on_host(scene):
         _close(a, b.numpy(), 1e-7)
 
 
-def test_operation_count_structure(scene):
+def test_host_team_widths_agree_bit_for_bit(scene, host):
+    """Every task writes its own slots and every combine runs in a fixed
+    order, so a team of width 1 (tasks in order) and one of width 32 (dealt
+    round-robin, rank by rank, as a warp deals them) or 7 give equal
+    results, bit for bit, and the same residual counts."""
+    (q, v, u), g = _host_case(scene["mt"])
+    runs = []
+    for width in (1, 32, 7):
+        host.width = width
+        fwd = host.run_fwd(q, v, u)
+        nres = host.last_residuals.clone()
+        runs.append((fwd, nres, host.run_bwd(q, v, u, fwd[2], *g)))
+    host.width = 32
+    (f0, n0, b0), *rest = runs
+    for f, n, b in rest:
+        assert torch.equal(n, n0)
+        for x, y in zip(f + b, f0 + b0):
+            assert torch.equal(x, y)
+
+
+def test_k2_jumps_at_round_off_on_a_violent_lane(scene, host):
+    """Lanes 505 and 984 of contact_state(seed 0) at B = 1024 sit where
+    K2's function itself jumps (the chord's stop and best iterate flip):
+    changes of (q, qdot, u) by 1e-15 of themselves move the plain version's
+    output by more than 1e-2 of scale there, and the kernels' source jumps
+    with it. The card's float64 check (tests/test_torch_cuda.py) excuses a
+    lane off its plain version only where the plain version jumps so."""
+    mt = scene["mt"]
+    q, v = contact_state("tactile_push", mt.q_init.numpy(), 1024, seed=0)
+    u = 0.5 * np.random.RandomState(1).randn(6, 1024)
+    lanes, draws = [505, 984], 4
+    cols = np.repeat(lanes, draws + 1)          # each lane, then its draws
+    changed = np.tile(np.r_[0, np.ones(draws)], len(lanes))
+    rng = np.random.RandomState(0)
+    args = [_t(a[:, cols] * (1 + 1e-15 * changed * rng.randn(a.shape[0],
+                                                           len(cols))))
+            for a in (q, v, u)]
+    host.width = 32
+
+    def moved(out):
+        out = [x.reshape(-1, len(lanes), draws + 1) for x in out]
+        return [max(float((x[:, i, 1:] - x[:, i, :1]).abs().max()
+                          / x[:, i, :1].abs().max()) for x in out)
+                for i in range(len(lanes))]
+
+    assert min(moved(host.op.fwd_ref(*args))) > 1e-2
+    assert min(moved(host.run_fwd(*args))) > 1e-2
+
+
+# the operations per lane that K2/K3 need (megastep_host.needed) at the
+# inputs of `python megastep_host.py`: contact_state(seed 0), 4 lanes, u from
+# RandomState(1); the bound's yardstick, recorded before the warp redesign
+NEEDED = {"momentum": [42067] * 4, "residual": [117787] * 4,
+          "column": [194300, 194300, 194012, 194012],
+          "momentum_column": [70320] * 4, "factor": [234] * 4,
+          "solve": [91] * 4}
+
+
+def test_needed_units_pinned(scene, counter):
+    st, mt = scene["st"], scene["mt"]
+    q, v = contact_state("tactile_push", mt.q_init.numpy(), 4, seed=0)
+    u = 0.5 * np.random.RandomState(1).randn(st.ndof_u, 4)
+    need = megastep_host.needed(counter.units(scene["tables"], q, v, u),
+                                st.ndof_q)
+    assert {k: a.tolist() for k, a in need.items()} == NEEDED
+
+
+def test_operation_count_structure(scene, counter):
     """The jet count of megastep_host.needed assumes how many Lagrangians
     and residuals each sweeping function of csrc/megastep.cu runs."""
-    if not megastep_host.available():
-        pytest.skip("needs g++ to build the kernels' device code as host C++")
     st, mt = scene["st"], scene["mt"]
     q, v = contact_state("tactile_push", mt.q_init.numpy(), 2, seed=0)
     u = 0.5 * np.random.RandomState(1).randn(st.ndof_u, 2)
-    units = megastep_host.Counter().units(scene["tables"], q, v, u,
-                                          executed=True)
+    units = counter.units(scene["tables"], q, v, u, executed=True)
     c = {k: units[:, i] for i, k in enumerate(megastep_host.UNITS)}
     n = st.ndof_q
     np.testing.assert_array_equal(c["momentum_exec"], n * c["Lq1"])
