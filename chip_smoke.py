@@ -11,11 +11,21 @@ seconds):
               process per source, all started together, and K2/K3's
               source as host C++ that counts operations (megastep_host.py,
               g++) beside them; prints the build seconds and ptxas's report;
- 3. kernels - K1 (csrc/lane_contact.cu) against its plain PyTorch version on
-              the same card inputs, float32, at B = 1024: TactilePush
-              (ground, cuboid), RollingBall 8x8 (sphere) and a hand-made
-              cylinder scene, each with static and per-lane parameters; to
-              1e-5 x the output's scale (the sums run in another order).
+ 3. kernels - K1 and K1T (csrc/lane_contact.cu) against their plain
+              PyTorch versions (the twin, its VJP) on the same card inputs,
+              float32, at B = 1024: TactilePush (ground, cuboid),
+              StableGrasp (markers in up to 11 segments), TactileInsertion,
+              RollingBall 8x8 (sphere) and a hand-made cylinder scene, each
+              with static and per-lane parameters; K1 to 1e-5 x the
+              output's scale, K1T to K1T_TOL, on every lane but those where
+              float32 rounding decides a jump of the contact law
+              (K1_ROUNDING_LANES), where both are held to the float64
+              twin (K1_F32_VS_F64); two launches bit-equal; times
+              at B = 1024 and 16 (launched back to back from Python, and
+              the device alone: device_ms), bounds from the operations the
+              function needs at the timed inputs (megastep_host.py),
+              registers,
+              shared memory and resident clusters.
               K2 and K3 (csrc/megastep.cu) against theirs on TactilePush
               contact states: float64 at B = 64; float32 with K2 at
               B = 1024 and K3 at B = 128, the kernel and the f32 plain
@@ -33,11 +43,15 @@ seconds):
               tactile_flatten forward policy rollout at B = 1024 on the lanes
               stepper (``rebuild_solver(mega=False)``; DiagGaussianActor
               [64, 64] elu, random weights from a seed); K1 must launch
-              1 + 47 times per env step, outputs finite;
+              1 + 47 times per env step and K1T 7 (the chord factor's
+              pullbacks), the twin never, outputs finite;
  5. train   - slice 2: (a) a differentiable rollout at B = 1024, H = 5 on
               the mega path, -mean(sum of rewards) back to the actor's
               parameters: K2 = K3 = H launches, K1 = 1 + H (tactile obs)
-              with H - 1 twin recomputes, finite gradients; (b) the GD trainer
+              and K1T = H - 1 (the observations an action was taken on),
+              the twin never, finite gradients; eager aten ops per env step
+              (forward, backward) and the backward's top host costs;
+              (b) the GD trainer
               with examples/TactilePushExp/cfg/gd_tactile.yaml (E = 16,
               H = 100) for 2 epochs: finite loss, the parameters move;
  6. cross   - 2 env steps at B = 16 on the card (mega path, float32)
@@ -85,11 +99,36 @@ FP32_FLOPS_PER_S = 67e12         # non-tensor-core fp32 peak
 ACTOR_CFG = {"actor_mlp": {"layer_sizes": [64, 64], "activation": "elu",
                            "layernorm": False},
              "actor_logstd_init": -1.0}
-# flops per point of K1, counted from csrc/lane_contact.cu: point FK 33,
-# point velocity 12, force law 41, wrench sums 15, plus the primitive's
-# frame transform, relative velocity and SDF; +3 for a tactile row
-K1_FLOPS_PER_POINT = {-1: 107, 0: 185, 1: 178, 2: 160}
 K1_TOL = 1e-5
+# K1T against the twin's VJP, float32: each cotangent sums up to 4,906
+# points' terms (StableGrasp) and the twin's autograd sums them in another
+# order (and pulls the box's R through quat_rotate where the kernel uses
+# the matrix), so each is held to 1e-4 of its scale and by its cosine
+K1T_TOL = {"rel": 1e-4, "cos": 0.99999}
+# Inside a box the contact normal is the axis of least depth, a function
+# that jumps where two axes tie; a point within float32 rounding of such a
+# tie takes its axis from the rounding (StableGrasp, B = 1024, seed 0: lane
+# 961's marker 13 of segment 60, 5.1 mm deep, its two deepest axes 1.9e-9
+# apart). There the float32 plain version itself parts from the float64 one
+# (by 5e-5 of F's scale, 5e-2 of the tactile rows'), and two float32
+# implementations may take either side. The derivative jumps at every kink
+# of the law (relu of the normal velocity, the friction cap's max, the
+# box's axis), so the VJP meets more such points (StableGrasp: lanes 245
+# and 354, bquat's cotangent 1.3e-4 of scale off float64). Such lanes (the
+# float32 plain version, or its VJP's per-lane cotangents, off the float64
+# one by more than K1_TOL, K1T_TOL["rel"], of the scale) are set aside,
+# listed, and must be at most this share of the lanes; K1 and K1T are held
+# to their plain versions on all the others. On the set-aside lanes they
+# are held to the float64 twin, within K1_F32_VS_F64 x the jump the float64
+# twin makes itself there when each per-lane input moves by up to K1_JITTER
+# of itself (the largest over K1_JITTER_RUNS random moves), plus K1_TOL
+# (K1T_TOL["rel"]), each over the output's scale. Not the float32 twin's
+# distance: at a two-axis tie a float32 run may take either axis or, on an
+# exact tie, their average, half way (lane 961: the float32 twin 5.0e-5 of
+# F's scale off float64, the kernel 9.6e-5).
+K1_ROUNDING_LANES = 0.01
+K1_F32_VS_F64 = 1.25
+K1_JITTER, K1_JITTER_RUNS = 2.0 ** -22, 32
 # K2/K3 against their plain version. float64: the same algorithm in the same
 # order to round-off (measured 2e-13 on values, 1e-14 on gradients); the
 # chord's stop masks cannot flip at this precision.
@@ -140,10 +179,13 @@ ROLL_F64_TOL = {"q": 1e-9, "qdot": 1e-9, "tactile": 1e-8}
 # float32 run's distance from float64: within 1.25x of it plus 1e-5.
 ROLL_F32_VS_F64 = (1.25, 1e-5)
 MEGA = "tactilesimulation_tpu_torch/csrc/megastep.cu"
+LANE = "tactilesimulation_tpu_torch/csrc/lane_contact.cu"
 KERNELS = [dict(name="K1 lane_contact", key="K1", lib="lane_contact",
-                route="cuda",
-                source="tactilesimulation_tpu_torch/csrc/lane_contact.cu",
+                route="cuda", source=LANE,
                 replaces="tactilesimulation_tpu/ops/lane_contact.py:413"),
+           dict(name="K1T lane_contact adjoint", key="K1T",
+                lib="lane_contact", route="cuda", source=LANE,
+                replaces="tactilesimulation_tpu/ops/lane_contact.py:452"),
            dict(name="K2 megastep forward", key="K2", lib="megastep",
                 route="cuda", source=MEGA,
                 replaces="tactilesimulation_tpu/ops/megastep.py:799"),
@@ -189,6 +231,103 @@ def contact_state(name, q_init, B, seed):
     return q, 0.1 * rng.randn(n, B)
 
 
+K1_SCENES = ("tactile_push", "stable_grasp", "tactile_insertion",
+             "rolling_ball_8", "cylinder_probe")
+
+
+def k1_scene(name):
+    """(struct, model) of one of K1_SCENES."""
+    from tactilesimulation_tpu_torch.model import scenes, task_scenes
+    return {"tactile_push": task_scenes.tactile_push,
+            "stable_grasp": task_scenes.stable_grasp,
+            "tactile_insertion": task_scenes.tactile_insertion,
+            "rolling_ball_8": lambda: task_scenes.rolling_ball(8),
+            "cylinder_probe": lambda: cylinder_probe(scenes)}[name]()
+
+
+def pair_wrench_inputs(name, B, seed=0, tie=False):
+    """(op, args, per_lane): a PairWrenches for scene ``name``, its 11
+    inputs (float64 CPU tensors) with contacts in every lane, and per-lane
+    (K, 4, B) parameters (0.5-1.5 x the static ones).
+
+    TactilePush, RollingBall and the cylinder probe take contact_state's
+    bodies. StableGrasp and TactileInsertion start from q_init (fingers
+    open, nothing touching), so each primitive is moved onto the points of
+    the first segment that meets it, a quarter of its size off per lane,
+    and the ground up to the mean height of its points: some points in
+    contact and some out, and (StableGrasp) each pad marker against up to
+    11 blocks.
+
+    ``tie`` puts points exactly on kinks of the contact law, for float64
+    checks of the tie rules: TactilePush's lane 0 first pad point inside
+    the box exactly as deep on two axes (amax's tie); StableGrasp's and
+    TactileInsertion's ground at the median height of its points, so one
+    point lies on it (relu's tie at 0). In float32 the rounding of the
+    inputs and of each implementation picks a side of such a kink, which
+    moves a cotangent by that point's whole term (2e-4 of scale on
+    TactileInsertion's jp), so float32 checks take ``tie=False``."""
+    from tactilesimulation_tpu_torch.ops import lane_contact
+    from tactilesimulation_tpu_torch.sim import contact, lanes
+    struct, model = k1_scene(name)
+    rng = np.random.RandomState(seed)
+    if name in ("stable_grasp", "tactile_insertion"):
+        n = struct.ndof_q
+        q = model.q_init.numpy()[:, None] + 1e-3 * rng.randn(n, B)
+        v = 0.1 * rng.randn(n, B)
+    else:
+        q, v = contact_state(name, model.q_init.numpy(), B, seed=seed)
+    with torch.no_grad():
+        jp, jq, bp, bquat, _, _, _, Om, be = lanes._fused_small_stage(
+            struct, model, torch.as_tensor(q), torch.as_tensor(v))
+        op = lane_contact.PairWrenches(struct)
+        params = contact.combined_params(model)
+        xi = lane_contact.pack_points(struct, model, op.src_idx)
+    gpos = model.ground_pos.clone()
+    off = np.cumsum([0] + [sg.n for sg in op.segments])
+
+    def world(i):
+        sg = op.segments[i]
+        x = xi[off[i]:off[i] + sg.n].T[:, :, None]
+        return jp[:, sg.joint][:, None] + lanes.quat_rotate(
+            jq[:, sg.joint][:, None], x)                   # (3, n, B)
+
+    if name in ("stable_grasp", "tactile_insertion"):
+        placed = set()
+        for i, sg in enumerate(op.segments):
+            if sg.prim_body >= 0 and sg.prim_body not in placed:
+                placed.add(sg.prim_body)
+                size = model.body_size[sg.prim_body].numpy()
+                bp[:, sg.prim_body] = world(i).mean(dim=1) + torch.as_tensor(
+                    0.25 * size[:, None] * rng.randn(3, B))
+        z = [world(i)[2] for i, sg in enumerate(op.segments)
+             if sg.prim_body < 0]
+        if z:
+            z = torch.cat(z)
+            gpos[2] = z.median() if tie else z.mean()
+    if tie and name == "tactile_push":
+        i = next(i for i, sg in enumerate(op.segments) if sg.gtype == 0)
+        sg = op.segments[i]
+        x0 = xi[off[i]].numpy()
+        jq[:, sg.joint, 0] = torch.tensor([1.0, 0.0, 0.0, 0.0])
+        p = jp[:, sg.joint, 0].numpy().copy()
+        p[1] = p[0] + x0[0] - x0[1]
+        while p[1] + x0[1] != p[0] + x0[0]:        # x[0] == x[1] exactly
+            p[1] = np.nextafter(p[1], np.inf if p[1] + x0[1] < p[0] + x0[0]
+                                else -np.inf)
+        jp[:, sg.joint, 0] = torch.as_tensor(p)
+        x = p + x0
+        depth = 0.5 * float(model.body_size[sg.prim_body, 0]) - 0.004
+        bquat[:, sg.prim_body, 0] = torch.tensor([1.0, 0.0, 0.0, 0.0])
+        bp[:, sg.prim_body, 0] = torch.as_tensor(
+            [x[0] - depth, x[1] - depth, x[2]])
+    args = [jp, jq, Om, be, bp, bquat, model.body_size, params,
+            gpos, model.ground_normal, xi]
+    per_lane = params[:, :, None] * torch.as_tensor(
+        np.random.RandomState(seed + 1).uniform(
+            0.5, 1.5, tuple(params.shape) + (B,)))
+    return op, [a.contiguous() for a in args], per_lane.contiguous()
+
+
 def resting_contact(q_init, B, seed, pad_speed=0.0):
     """TactilePush (q, v) float64 (n, B) with the pad pressed 0.1-1 mm into
     the box and the box up to 0.3 mm into the ground, at rest but for the
@@ -209,6 +348,24 @@ def cuda_ms(fn, iters, warmup=3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters, warmup=3):
+    """The device's time for one call of ``fn``: the calls are queued
+    behind a sleep kernel (~0.1 s), so the card runs their kernels back to
+    back whatever the host's pace (cuda_ms sees the slower of the two)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -274,44 +431,123 @@ class Smoke:
             _build.load(lib)
 
     # 3 -------------------------------------------------------------------
-    def _k1_args(self, name, dev):
-        from tactilesimulation_tpu_torch.model import scenes, task_scenes
-        from tactilesimulation_tpu_torch.ops import lane_contact
-        from tactilesimulation_tpu_torch.sim import contact, lanes
-        build = {"tactile_push": task_scenes.tactile_push,
-                 "rolling_ball_8": lambda: task_scenes.rolling_ball(8),
-                 "cylinder_probe": lambda: cylinder_probe(scenes)}[name]
-        struct, model = build()
-        q, v = contact_state(name, model.q_init.numpy(), B_MAIN, seed=0)
-        model = model.to(dev, torch.float32)
-        q = torch.as_tensor(q, dtype=torch.float32, device=dev)
-        v = torch.as_tensor(v, dtype=torch.float32, device=dev)
-        with torch.no_grad():
-            jp, jq, bp, bquat, _, _, _, Om, be = lanes._fused_small_stage(
-                struct, model, q, v)
-            op = lane_contact.PairWrenches(struct)
-            params = contact.combined_params(model)
-            xi = lane_contact.pack_points(struct, model, op.src_idx)
-        args = [jp, jq, Om, be, bp, bquat, model.body_size, params,
-                model.ground_pos, model.ground_normal, xi]
-        rng = np.random.RandomState(1)
-        per_lane = params[:, :, None] * torch.as_tensor(
-            rng.uniform(0.5, 1.5, tuple(params.shape) + (B_MAIN,)),
-            dtype=torch.float32, device=dev)
-        return op, [a.contiguous() for a in args], per_lane.contiguous()
-
     def kernels(self, dev):
-        worst = 0.0
+        self.k1_kernels(dev)
+        self.megastep_kernels(dev)
+        self.k4_kernels(dev)
+
+    @staticmethod
+    def _k1_lanes(op, name, mode, a64, cots64, dev):
+        """(float64 CPU inputs, float32 card inputs, float64 CPU cotangents)
+        without the lanes on which float32 rounding decides a jump of the
+        contact law or of its derivative (K1_ROUNDING_LANES), once K1 and
+        K1T are held to the float64 twin there (K1_F32_VS_F64)."""
+        def twin(args, cots):
+            ins = [x.detach().requires_grad_() for x in args]
+            outs = op.reference(*ins)
+            live = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+            grads = torch.autograd.grad([o for o, _ in live], ins,
+                                        [c for _, c in live],
+                                        allow_unused=True)
+            return [o.detach() for o in outs], grads
+
+        runs = [twin([x.to(dev, dt) for x in a64],
+                     [c.to(dev, dt) for c in cots64])
+                for dt in (torch.float64, torch.float32)]
+        off = torch.zeros(a64[0].shape[-1], dtype=torch.bool, device=dev)
+        (o64, g64), (o32, g32) = runs
+        per_lane = [0, 1, 2, 3, 4, 5] + ([7] if a64[7].dim() == 3 else [])
+        # (float32 twin, float64 twin, tolerance) of every output and
+        # per-lane cotangent
+        pick = lambda outs, grads: list(outs) + [grads[i] for i in per_lane]
+        tols = [K1_TOL] * 3 + [K1T_TOL["rel"]] * len(per_lane)
+        checks = [None if w is None or not w.numel() else
+                  (g, w, tol, float(w.abs().max()) + 1e-6)
+                  for g, w, tol in zip(pick(o32, g32), pick(o64, g64), tols)]
+        for g, w, tol, scale in filter(None, checks):
+            off |= (g.double() - w).abs().amax(dim=(0, 1)) > tol * scale
+        lanes = torch.nonzero(off).flatten()
+        if len(lanes) > K1_ROUNDING_LANES * len(off):
+            raise AssertionError(f"{name} {mode}: {len(lanes)} lanes where "
+                                 "float32 rounding decides the contact law")
+        if len(lanes):
+            # there K1 and K1T are held to the float64 twin, within the
+            # jump it makes itself when its inputs move at float32's
+            # rounding (K1_JITTER)
+            at = lambda x: (x.to(dev).index_select(-1, lanes)
+                            if x.dim() == 3 else x.to(dev))
+            a32 = [x.to(dev, torch.float32).contiguous() for x in a64]
+            with torch.no_grad():
+                k_out = op(*a32)
+            k_grad = op.run_adjoint(a32, [c.to(dev, torch.float32)
+                                          for c in cots64], (True,) * 11)
+            base = [at(x) for x in a64]
+            cots = [at(c) for c in cots64]
+            ref = pick(*twin(base, cots))
+            # the moves as K1_JITTER_RUNS copies of the lanes, in one call
+            tile = lambda x: (x.repeat(1, 1, K1_JITTER_RUNS) if x.dim() == 3
+                              else x)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            moved = [tile(x) * (1 + K1_JITTER * (2 * torch.rand(
+                tile(x).shape, generator=gen, device=dev, dtype=x.dtype) - 1))
+                     if x.dim() == 3 else x for x in base]
+            jumps = [0.0] * len(ref)
+            for e, j in enumerate(pick(*twin(moved, [tile(c) for c in cots]))):
+                if checks[e]:
+                    jumps[e] = float((j.unflatten(-1, (K1_JITTER_RUNS, -1))
+                                      - ref[e][..., None, :]).abs().max())
+            used, worst = 0.0, ""
+            for e, k in enumerate(pick(k_out, k_grad)):
+                if not checks[e]:
+                    continue
+                g, _, tol, scale = checks[e]
+                dist = lambda t: float(
+                    (at(t).double() - ref[e]).abs().max()) / scale
+                jump = jumps[e] / scale
+                allowed = K1_F32_VS_F64 * jump + tol
+                if dist(k) / allowed >= used:
+                    used, worst = dist(k) / allowed, (
+                        f"kernel {dist(k):.3e}, float32 twin {dist(g):.3e}, "
+                        f"float64's jump {jump:.3e} of scale")
+                if not dist(k) <= allowed:
+                    raise AssertionError(
+                        f"{name} {mode}: on the set-aside lanes the kernel "
+                        f"is {dist(k):.3e} of scale off float64, whose jump "
+                        f"under K1_JITTER is {jump:.3e} (float32 twin "
+                        f"{dist(g):.3e}; tol {K1_F32_VS_F64:g} x + {tol:g})")
+            print(f"  {name} {mode}: lanes {lanes.tolist()} set aside (the "
+                  "float32 plain version or its VJP parts from float64 "
+                  "there: K1_ROUNDING_LANES); there K1 and K1T use "
+                  f"{used:.3f} of what K1_F32_VS_F64 allows (most: {worst})")
+            keep = torch.nonzero(~off.cpu()).flatten()
+            a64 = [x.index_select(-1, keep).contiguous() if x.dim() == 3
+                   else x for x in a64]
+            cots64 = [c.index_select(-1, keep).contiguous() for c in cots64]
+        return (a64, [x.to(dev, torch.float32).contiguous() for x in a64],
+                cots64)
+
+    def k1_kernels(self, dev):
+        """K1 and K1T against their plain versions on the five scenes, two
+        launches bit-equal, then their times at B = 1024 and 16 beside
+        their bounds, and what the compiler and the card made of them."""
+        from tactilesimulation_tpu_torch.ops import lane_contact
+        worst = {"K1": 0.0, "K1T": 0.0}
         main = None
-        for name in ("tactile_push", "rolling_ball_8", "cylinder_probe"):
-            op, args, per_lane = self._k1_args(name, dev)
+        f32 = lambda t: t.to(dev, torch.float32).contiguous()
+        for name in K1_SCENES:
+            op, args64, per_lane64 = pair_wrench_inputs(name, B_MAIN)
             for mode in ("static", "per-lane"):
-                a = list(args)
+                a64 = list(args64)
                 if mode == "per-lane":
-                    a[7] = per_lane
+                    a64[7] = per_lane64
+                cots64 = [torch.as_tensor(np.random.RandomState(2).randn(
+                    3, n, B_MAIN)) for n in (op.J, op.J, op.ntac)]
+                a64, a, cots64 = self._k1_lanes(op, name, mode, a64, cots64,
+                                                dev)
                 with torch.no_grad():
                     got = op(*a)
                     want = op.reference(*a)
+                    again = op(*a)
                 torch.cuda.synchronize()
                 errs = []
                 for g, w, out in zip(got, want, ("F", "Tau", "tac")):
@@ -326,37 +562,116 @@ class Smoke:
                             f"{K1_TOL:g} x {scale:.3e}")
                 if float(got[0].abs().max()) <= 1e-3:
                     raise AssertionError(f"{name}: no active contact")
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    raise AssertionError(f"K1 {name}: two launches differ")
                 rel = max(e / s for _, e, s in errs)
-                worst = max(worst, rel)
-                segs = sorted({s.gtype for s in op.segments})
-                print(f"  K1 {name:15s} {mode:8s} B={B_MAIN} gtypes={segs} "
+                worst["K1"] = max(worst["K1"], rel)
+                cots = [f32(c) for c in cots64]
+                gk = op.run_adjoint(a, cots, (True,) * 11)
+                gk2 = op.run_adjoint(a, cots, (True,) * 11)
+                ins = [x.detach().requires_grad_() for x in a]
+                outs = op.reference(*ins)
+                live = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+                gw = torch.autograd.grad([o for o, _ in live], ins,
+                                         [c for _, c in live],
+                                         allow_unused=True)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(gk, gk2)):
+                    raise AssertionError(f"K1T {name}: two launches differ")
+                berrs = []
+                for g, w, what in zip(gk, gw, lane_contact._ARG_NAMES):
+                    if w is None:
+                        if float(g.abs().max()) != 0.0:
+                            raise AssertionError(f"K1T {name} {what}: not 0")
+                        continue
+                    scale = float(w.abs().max())
+                    err = float((g - w).abs().max())
+                    cos = (float((g * w).sum() / (g.norm() * w.norm()))
+                           if scale > 0 else 1.0)
+                    berrs.append((what, err, scale, cos))
+                    if not (err <= K1T_TOL["rel"] * scale
+                            and cos >= K1T_TOL["cos"]):
+                        raise AssertionError(
+                            f"K1T {name} {mode} {what}: |err| {err:.3e} "
+                            f"scale {scale:.3e} cos {cos:.9f} (tol "
+                            f"{K1T_TOL})")
+                brel = max(e / s for _, e, s, _ in berrs if s > 0)
+                worst["K1T"] = max(worst["K1T"], brel)
+                segs = sorted({sg.gtype for sg in op.segments})
+                print(f"  K1 {name:17s} {mode:8s} B={a[0].shape[-1]} "
+                      f"gtypes={segs} "
                       + " ".join(f"{o}:{e:.2e}/{s:.2e}" for o, e, s in errs)
                       + f" max rel {rel:.2e} (tol {K1_TOL:g}) ok")
+                print(f"  K1T {name:16s} {mode:8s} max rel {brel:.2e}, min "
+                      f"cos {min(c for *_, c in berrs):.9f} (tol "
+                      f"{K1T_TOL['rel']:g}, {K1T_TOL['cos']}); bit-equal "
+                      "launches ok")
                 if name == "tactile_push" and mode == "static":
-                    main = (op, a, max(e for _, e, _ in errs))
-        op, a, max_abs = main
-        k_ms = cuda_ms(lambda: op.run_kernel(*a), 200, warmup=10)
-        with torch.no_grad():
-            p_ms = cuda_ms(lambda: op.reference(*a), 20)
-        bytes_moved = 4 * (sum(x.numel() for x in a)
-                           + op._seg_np.size
-                           + 2 * 3 * op.J * B_MAIN + 3 * op.ntac * B_MAIN)
-        flops = B_MAIN * sum(s.n * (K1_FLOPS_PER_POINT[s.gtype]
-                                    + (3 if s.tac0 >= 0 else 0))
-                             for s in op.segments)
-        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS_PER_S * 1e3
-        bound = max(t_bytes, t_ops)
-        print(f"  K1 TactilePush B={B_MAIN}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms; moves {bytes_moved} B ({t_bytes:.5f} ms), "
-              f"{flops} flop ({t_ops:.5f} ms); bound {bound:.5f} ms; "
-              f"worst rel err {worst:.2e}")
-        self.kernel_rows.setdefault("K1", {}).update(
-            max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None)
-        self.megastep_kernels(dev)
-        self.k4_kernels(dev)
+                    main = (op, a, a64, cots,
+                            max(e for _, e, _ in errs),
+                            max(e for _, e, _, _ in berrs))
+        op, a, a64, cots, k1_err, k1t_err = main
+        need = (True,) * 6 + (False,) * 5     # what the mega path asks
+        import megastep_host
+        host = megastep_host.HostLaneContact(op)
+        for Bt in (B_MAIN, 16):
+            sub = [x[..., :Bt].contiguous() if x.dim() == 3 else x
+                   for x in a]
+            csub = [c[..., :Bt].contiguous() for c in cots]
+            k_ms = cuda_ms(lambda: op.run_kernel(*sub), 200, warmup=10)
+            t_ms = cuda_ms(lambda: op.run_adjoint(sub, csub, need), 200,
+                           warmup=10)
+            kd_ms = device_ms(lambda: op.run_kernel(*sub), 100)
+            td_ms = device_ms(lambda: op.run_adjoint(sub, csub, need), 100)
+            with torch.no_grad():
+                p_ms = cuda_ms(lambda: op.reference(*sub), 20)
+
+            def twin_vjp():
+                ins = [x.detach().requires_grad_(nd)
+                       for x, nd in zip(sub, need + (False,) * 5)]
+                outs = op.reference(*ins)
+                return torch.autograd.grad(outs, ins[:6], csub)
+
+            pt_ms = cuda_ms(twin_vjp, 20)
+            t0 = time.perf_counter()
+            ops1, ops1t = host.count(
+                [x[..., :Bt].contiguous() if x.dim() == 3 else x
+                 for x in a64],
+                [c[..., :Bt].double().cpu().contiguous() for c in cots],
+                need)
+            count_s = time.perf_counter() - t0
+            nbytes = lambda ts: 4 * sum(t.numel() for t in ts)
+            plan_b = 4 * op.plan.size
+            b1 = (nbytes(sub) + plan_b
+                  + 4 * (2 * 3 * op.J + 3 * op.ntac) * Bt)
+            b1t = (nbytes(sub) + plan_b + nbytes(csub)
+                   + nbytes(sub[:6]))
+            for key, ms, dms, plain, nb, nops, err in (
+                    ("K1", k_ms, kd_ms, p_ms, b1, ops1, k1_err),
+                    ("K1T", t_ms, td_ms, pt_ms, b1t, ops1t, k1t_err)):
+                bound, by, t_b, t_o = self._bound(nb, nops)
+                print(f"  {key} TactilePush f32 B={Bt}: kernel {ms:.4f} ms "
+                      f"(device alone {dms:.4f} ms), "
+                      f"plain {plain:.4f} ms; moves {nb} B ({t_b:.5f} ms), "
+                      f"{nops} op ({t_o:.5f} ms); bound {bound:.5f} ms by "
+                      f"{by}; {100 * bound / ms:.2f} % of it [{self.card}]")
+                if Bt == B_MAIN:
+                    self.kernel_rows.setdefault(key, {}).update(
+                        max_abs_err=err, ms=ms, plain_ms=plain,
+                        bound_ms=bound, bound_by=by, library_ms=None)
+            print(f"  (operations counted on the host in {count_s:.1f} s)")
+        print(f"  worst rel err over the scenes: K1 {worst['K1']:.2e}, K1T "
+              f"{worst['K1T']:.2e}")
+        for key, d in lane_contact.kernel_info(op, a[7].shape[0],
+                                               B_MAIN).items():
+            print(f"  {key}: {d['registers']} registers, local "
+                  f"{d['local_bytes']} B per thread, shared "
+                  f"{d['dynamic_shared_bytes']} B per block of "
+                  f"{32 * lane_contact.WARPS} threads, "
+                  f"{int(op.header[2])} blocks per cluster (one 32-lane "
+                  f"tile), {d['clusters']} clusters resident on the card; "
+                  f"{int(op.header[1])} pieces in {int(op.header[3])} "
+                  f"round(s)")
 
     @staticmethod
     def _bound(bytes_moved, ops):
@@ -620,22 +935,26 @@ class Smoke:
             rewards, dones, infos = run(B_MAIN)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, vjps, recomputes = (pw.launches, pw.twin_vjps,
-                                      pw.twin_recomputes)
+        launches, bwd, vjps, recomputes = (pw.launches, pw.bwd_launches,
+                                           pw.twin_vjps, pw.twin_recomputes)
         want = 1 + per_step * H_MAIN
+        want_bwd = env.struct.ndof_q * H_MAIN    # the chord factors' rows
         print(f"  K1 launches {launches} (want 1 reset + {per_step} x "
-              f"{H_MAIN} = {want}); twin VJPs {vjps}, twin recomputes "
-              f"{recomputes}")
+              f"{H_MAIN} = {want}); K1T launches {bwd} (want "
+              f"{env.struct.ndof_q} per chord factor x {H_MAIN} = "
+              f"{want_bwd}); twin VJPs {vjps}, twin recomputes {recomputes}")
         if launches != want:
             raise AssertionError(f"K1 launched {launches} times, want {want}")
-        if (vjps, recomputes) != (env.struct.ndof_q * H_MAIN, H_MAIN):
-            raise AssertionError("twin VJP counts off")
+        if (bwd, vjps, recomputes) != (want_bwd, 0, 0):
+            raise AssertionError("the chord factor's pullbacks did not all "
+                                 "run through K1T")
         if tuple(rewards.shape) != (B_MAIN, H_MAIN):
             raise AssertionError(f"rewards {tuple(rewards.shape)}")
         for k, x in [("reward", rewards)] + list(infos.items()):
             if not bool(torch.isfinite(x).all()):
                 raise AssertionError(f"{k} not finite")
         self.kernel_rows.setdefault("K1", {})["launches"] = launches
+        self.kernel_rows.setdefault("K1T", {})["launches"] = bwd
         steps_s = H_MAIN / wall
         print(f"  slice: B={B_MAIN} H={H_MAIN} in {wall:.3f} s: "
               f"{steps_s:.4f} env steps/s, {steps_s * B_MAIN:.1f} lane "
@@ -659,10 +978,13 @@ class Smoke:
                                                       sim.qdot), 3)
             step_ms = wall / H_MAIN * 1e3
         k_ms = self.kernel_rows.get("K1", {}).get("ms", float("nan"))
-        print(f"  env step {step_ms:.1f} ms: chord factor (7 pullbacks) "
+        kt_ms = self.kernel_rows.get("K1T", {}).get("ms", float("nan"))
+        nq = env.struct.ndof_q
+        print(f"  env step {step_ms:.1f} ms: chord factor ({nq} pullbacks) "
               f"{j_ms:.1f} ms, residual {r_ms:.2f} ms x "
-              f"{per_step - 1}, K1 {k_ms * per_step:.3f} ms in all "
-              f"({100 * k_ms * per_step / step_ms:.3f} %)")
+              f"{per_step - 1}, K1 {k_ms * per_step:.3f} ms and K1T "
+              f"{kt_ms * nq:.3f} ms in all "
+              f"({100 * (k_ms * per_step + kt_ms * nq) / step_ms:.3f} %)")
         self.device_share(lambda: residual(sim.qdot, inputs), "residual")
 
     @staticmethod
@@ -725,16 +1047,17 @@ class Smoke:
         pw.reset_counts()
         loss, grads, t_fwd, t_bwd = rollout_grad(B_MAIN, H_TRAIN)
         counts = dict(K2=mega.fwd_launches, K3=mega.bwd_launches,
-                      K1=pw.launches, twin=pw.twin_recomputes)
-        # K1 runs for every observation (reset + H); its twin's backward
-        # for each one an action was taken on (the reset's carries no graph
-        # and the last one feeds no action): H - 1
-        want = dict(K2=H_TRAIN, K3=H_TRAIN, K1=1 + H_TRAIN,
-                    twin=H_TRAIN - 1)
+                      K1=pw.launches, K1T=pw.bwd_launches,
+                      twin=pw.twin_recomputes + pw.twin_vjps)
+        # K1 runs for every observation (reset + H); K1T for each one an
+        # action was taken on after the reset (the reset's carries no graph
+        # and the last one feeds no action): H - 1; the twin never
+        want = dict(K2=H_TRAIN, K3=H_TRAIN, K1=1 + H_TRAIN, K1T=H_TRAIN - 1,
+                    twin=0)
         print(f"  launches {counts} (want {want})")
         if counts != want:
             raise AssertionError("the differentiable rollout did not run "
-                                 "through K2/K3/K1 as expected")
+                                 "through K2/K3/K1/K1T as expected")
         live = [g for g in grads if g is not None]
         if not live or not all(bool(torch.isfinite(g).all()) for g in live):
             raise AssertionError("non-finite or missing gradients")
@@ -752,16 +1075,17 @@ class Smoke:
               f"{steps_s * B_MAIN:.1f} lane steps/s, "
               f"{B_MAIN * steps_s / 150:.3f} differentiable rollouts/s at "
               f"H=150 [{self.card}]")
-        k2, k3, k1 = (self.kernel_rows.get(key, {}).get("ms", float("nan"))
-                      for key in ("K2", "K3", "K1"))
+        k2, k3, k1, k1t = (self.kernel_rows.get(key, {}).get(
+            "ms", float("nan")) for key in ("K2", "K3", "K1", "K1T"))
         step_ms = wall / H_TRAIN * 1e3
         print(f"  per env step {step_ms:.1f} ms: K2 {k2:.2f} ms "
               f"({100 * k2 / step_ms:.1f} %), K3 {k3:.2f} ms "
-              f"({100 * k3 / step_ms:.1f} %), K1 {k1:.3f} ms "
-              f"({100 * k1 / step_ms:.2f} %), rest "
-              f"{step_ms - k2 - k3 - k1:.1f} ms")
+              f"({100 * k3 / step_ms:.1f} %), K1 {k1:.3f} ms and K1T "
+              f"{k1t:.3f} ms ({100 * (k1 + k1t) / step_ms:.2f} %), rest "
+              f"{step_ms - k2 - k3 - k1 - k1t:.1f} ms")
         self.device_share(lambda: rollout_grad(B_MAIN, 1), "one env step "
                           "forward + backward", grad=True)
+        self.host_work(env, actor, params)
 
         # (b) the GD trainer, gd_tactile.yaml protocol, 2 epochs
         with open(GD_CFG) as fp:
@@ -783,7 +1107,8 @@ class Smoke:
               f"{E * H / sec:.1f} lane steps/s, mean reward {mean_r:.4f}, "
               f"max parameter move {moved:.3e}; launches K2 "
               f"{genv.megastep.fwd_launches}, K3 {genv.megastep.bwd_launches}"
-              f", K1 {genv.pair_wrenches.launches} [{self.card}]")
+              f", K1 {genv.pair_wrenches.launches}, K1T "
+              f"{genv.pair_wrenches.bwd_launches} [{self.card}]")
         if not (math.isfinite(mean_r) and moved > 0):
             raise AssertionError("GD: non-finite loss or the parameters did "
                                  "not move")
@@ -810,6 +1135,50 @@ class Smoke:
               f"{t2 - t1:.2f} s; at B={E}: K2 {k2e:.2f} ms x {H} = "
               f"{k2e * H / 1e3:.2f} s, K3 {k3e:.2f} ms x {H} = "
               f"{k3e * H / 1e3:.2f} s (resting state)")
+
+    @staticmethod
+    def host_work(env, actor, params, H=2):
+        """Eager aten ops per env step of a differentiable rollout at
+        B_MAIN (forward, backward; TorchDispatchMode, every op the host
+        dispatches), and the profiler's top host costs of one env step's
+        backward."""
+        from torch.profiler import ProfilerActivity, profile
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Count(TorchDispatchMode):
+            def __init__(self):
+                super().__init__()
+                self.n = 0
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                self.n += 1
+                return func(*args, **(kwargs or {}))
+
+        run = env.batched_rollout_fn(actor.act, H)
+        with Count() as fwd:
+            loss = -torch.mean(torch.sum(run(B_MAIN)[0], dim=1))
+        with Count() as bwd:
+            torch.autograd.grad(loss, params, allow_unused=True)
+        torch.cuda.synchronize()
+        print(f"  eager aten ops per env step (B={B_MAIN}, H={H}): forward "
+              f"{fwd.n / H:.0f}, backward {bwd.n / H:.0f}, together "
+              f"{(fwd.n + bwd.n) / H:.0f}")
+        loss = -torch.mean(torch.sum(
+            env.batched_rollout_fn(actor.act, 1)(B_MAIN)[0], dim=1))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            torch.autograd.grad(loss, params, allow_unused=True)
+            torch.cuda.synchronize()
+        rows = sorted(prof.key_averages(),
+                      key=lambda e: e.self_cpu_time_total, reverse=True)
+        if not rows:
+            raise AssertionError("the profiler recorded no host op")
+        total = sum(e.self_cpu_time_total for e in rows) / 1e3
+        print(f"  one env step's backward, host self time {total:.1f} ms; "
+              "top host costs:")
+        for e in rows[:10]:
+            print(f"    {e.key[:60]:60s} x{e.count:5d} "
+                  f"{e.self_cpu_time_total / 1e3:8.2f} ms")
 
     # 6 -------------------------------------------------------------------
     def cross(self, dev):
@@ -861,8 +1230,14 @@ class Smoke:
             runs.append([x.detach().double().cpu() for x in
                          (state.sim.q, state.sim.qdot, rewards, obs, flat)])
             mega = env.megastep
+            if where.type == "cuda" and (
+                    pw.twin_vjps or pw.twin_recomputes
+                    or not pw.bwd_launches):
+                raise AssertionError("the card's BPTT did not run through "
+                                     "K1T alone")
             print(f"  {where.type} {dtype}: mega {env.solver_mega}, K1 "
-                  f"launches {pw.launches}"
+                  f"launches {pw.launches}, K1T {pw.bwd_launches}, twin VJPs "
+                  f"{pw.twin_vjps}"
                   + (f", K2 {mega.fwd_launches}, K3 {mega.bwd_launches}"
                      if mega else ""))
         if not float(runs[1][4].norm()) > 0:

@@ -1,8 +1,8 @@
-"""K2/K3's device code (``csrc/megastep.cu``) built as host C++ with ``g++``.
+"""The kernels' device code built as host C++ with ``g++``.
 
 The kernels' device code compiles as plain C++ when the CUDA qualifiers are
-stubbed out; the launches are compiled only by nvcc. This tool builds it
-twice, on the CPU:
+stubbed out; the launches are compiled only by nvcc. For K2/K3
+(``csrc/megastep.cu``) this tool builds it twice, on the CPU:
 
 - ``HostMegastep``: the kernels' lane routines (``fwd_lane``, ``bwd_lane``)
   in float64, run lane by lane with a team of one thread that deals each
@@ -36,6 +36,19 @@ Lagrangians, momentum = n, residual_columns = n residuals on Dual<C> plus
 2n, the momentum pullback's column = n Lagrangians on Dual<Dual<C>>);
 tests/test_torch_megastep.py pins them, so a change of that structure in
 the CUDA source fails a test instead of leaving the bound stale.
+
+For K1 and K1T (``csrc/lane_contact.cu``), ``HostLaneContact`` builds
+their per-tile routines once (a few seconds): in float64 it runs a tile's
+cluster of blocks with the kernels' phases in their order (staging, each
+round's pieces warp by warp and lane by lane, each round's task
+accumulation, the tasks' outputs) through the op's own wrapper
+(``PairWrenches.forward_with`` / ``adjoint_with``), so the CPU tests hold
+the CUDA source to the JAX package; on the counting scalar it counts the
+operations K1 and K1T need on a run's inputs (``chip_smoke.py``'s bounds):
+what the kernels do, less what their decomposition repeats (a segment's
+rotations staged in every block that takes one of its pieces, counted once
+per lane instead) or spends on zeros (the quaternion reverse of a joint
+or body no segment rotates).
 
     python megastep_host.py      # the per-lane units on a contact state
 """
@@ -252,6 +265,251 @@ extern "C" int host_bwd(const int* it, const double* ft, int K,
 }
 """
 
+_LC_SRC = r"""
+#include <math.h>
+#include <algorithm>
+#include <vector>
+long long g_ops = 0;
+struct C {
+  double x;
+  C() : x(0) {}
+  C(double v) : x(v) {}
+};
+inline C operator+(C a, C b) { ++g_ops; return C(a.x + b.x); }
+inline C operator-(C a, C b) { ++g_ops; return C(a.x - b.x); }
+inline C operator*(C a, C b) { ++g_ops; return C(a.x * b.x); }
+inline C operator/(C a, C b) { ++g_ops; return C(a.x / b.x); }
+inline C operator-(C a) { return C(-a.x); }
+inline C& operator+=(C& a, C b) { a = a + b; return a; }
+inline C& operator-=(C& a, C b) { a = a - b; return a; }
+inline bool operator<(C a, C b) { return a.x < b.x; }
+inline bool operator>(C a, C b) { return a.x > b.x; }
+inline bool operator<=(C a, C b) { return a.x <= b.x; }
+inline bool operator>=(C a, C b) { return a.x >= b.x; }
+inline bool operator==(C a, C b) { return a.x == b.x; }
+inline C pv(C x) { return x; }
+inline C ssqrt(C a) { ++g_ops; return C(sqrt(a.x)); }
+inline C sabs(C a) { ++g_ops; return C(fabs(a.x)); }
+inline C smax2(C a, C b) { ++g_ops; return a.x > b.x ? a : b; }
+inline C smin2(C a, C b) { ++g_ops; return a.x < b.x ? a : b; }
+inline C with_primal(C, C p) { return p; }
+#include "cuda_runtime.h"
+dim3 blockIdx, threadIdx, blockDim;
+#include "lane_contact.cu"
+
+// the joints (0..J-1) and bodies (J..J+NB-1) whose rotation a segment
+// uses: its owner joint's and its primitive body's
+static std::vector<char> rotated(const int* plan, int J, int NB) {
+  std::vector<char> used(J + NB, 0);
+  const int* seg = plan + plan[kHOffSeg];
+  for (int s = 0; s < plan[kHS]; ++s) {
+    const int* sg = seg + kSegCols * s;
+    used[sg[2]] = 1;
+    if (sg[5] != kGround) used[J + sg[3]] = 1;
+  }
+  return used;
+}
+
+// A tile's cluster, block by block, in the kernels' phases; the threads of
+// a phase one after another. `counting`: only the live lanes run a piece
+// or a task (the card runs 32), and the counting scalar leaves out what
+// the function does not need: the staging, which computes a segment's
+// rotations once in every block that takes one of its pieces (the caller
+// counts them once per lane), and the quaternion reverse of a joint or
+// body whose rotation no segment uses (a zero cotangent).
+template <class T>
+void run(bool adj, const int* plan, const Args<T>& a, const Outs<T>& o,
+         bool counting) {
+  const int NS = plan[kHNS], R = plan[kHRounds];
+  const int ntasks = n_tasks(plan, adj, a.J, a.NB, a.K);
+  const Layout L = layout<T>(plan, adj, ntasks);
+  const std::vector<char> used = rotated(plan, a.J, a.NB);
+  auto unneeded = [&](int task) {
+    return counting && task < a.J + a.NB && !used[task];
+  };
+  std::vector<std::vector<unsigned char>> mem(NS);
+  for (int t = 0; t * kTile < a.B; ++t) {
+    std::vector<Block<T>> blk;
+    for (int y = 0; y < NS; ++y) {
+      mem[y].assign(L.total, 0);
+      blk.push_back(carve<T>(plan, mem[y].data(), t, y, adj, ntasks));
+    }
+    for (auto& k : blk)
+      for (int y = 0; y < NS; ++y) k.remote[y] = blk[y].slots;
+    const int lanes = counting ? std::min(kTile, a.B - t * kTile) : kTile;
+    for (auto& k : blk) stage_tables(k, ntasks, 0, 1);
+    for (int r = 0; r < R; ++r) {
+      const long long before = g_ops;
+      for (auto& k : blk) stage_round(k, a, o, r, 0, 1);
+      if (counting) g_ops = before;
+      for (auto& k : blk)
+        for (int w = 0; w < kWarps; ++w) {
+          for (int l = 0; l < lanes; ++l) {
+            if (adj) bwd_piece(k, a, o, r, w, l);
+            else fwd_piece(k, a, o, r, w, l);
+          }
+          if (adj)
+            for (int l = 0; l < kTile; ++l) bwd_piece_reduce(k, a, o, r, w, l);
+        }
+      for (int y = 0; y < NS; ++y)
+        for (int w = 0; w < kWarps; ++w)
+          for (int task = y * kWarps + w; task < ntasks; task += NS * kWarps)
+            for (int l = 0; l < lanes; ++l) {
+              if (adj) bwd_accumulate(blk[y], a, o, r, l, task);
+              else fwd_accumulate(blk[y], a, r, l, task);
+            }
+    }
+    for (int y = 0; y < NS; ++y)
+      for (int w = 0; w < kWarps; ++w)
+        for (int task = y * kWarps + w; task < ntasks; task += NS * kWarps) {
+          const long long before = g_ops;
+          for (int l = 0; l < lanes; ++l) {
+            if (adj) bwd_finish(blk[y], a, o, w, l, task);
+            else fwd_finish(blk[y], a, o, l, task);
+          }
+          if (adj && unneeded(task)) g_ops = before;
+          if (adj)
+            for (int l = 0; l < kTile; ++l)
+              bwd_finish_reduce(blk[y], a, o, w, l, task);
+        }
+  }
+}
+
+// in: jp, jq, om, be, bp, bq, sizes, params, gpos, gn, xi, gF, gT, gtac;
+// dims: row_stride, lane_stride, J, NB, K, ntac, nsum, B;
+// out: K1 F, T, tac, scratch; K1T jp, jq, om, be, bp, bq, params, shared
+template <class T>
+void unpack(const T* const* in, const int* d, T* const* out, int want,
+            bool adj, Args<T>& a, Outs<T>& o) {
+  a = Args<T>{in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], d[0],
+              d[1], in[8], in[9], in[10], d[2], d[3], d[4], d[5], d[6], d[7]};
+  o = Outs<T>{};
+  if (!adj) {
+    o.F = out[0]; o.T_ = out[1]; o.tac = out[2]; o.scratch = out[3];
+    return;
+  }
+  o.gF = in[11]; o.gT = in[12]; o.gtac = in[13];
+  o.jp = out[0]; o.jq = out[1]; o.om = out[2]; o.be = out[3];
+  o.bp = out[4]; o.bq = out[5]; o.params = out[6]; o.shared = out[7];
+  o.want = want;
+}
+
+extern "C" void host_lane_contact(int adj, const int* plan,
+                                  const double* const* in, const int* dims,
+                                  double* const* out, int want) {
+  Args<double> a;
+  Outs<double> o;
+  unpack(in, dims, out, want, adj, a, o);
+  run(adj, plan, a, o, false);
+}
+
+// the same on the counting scalar, the live lanes only: the operations
+// the function needs (run's `counting`), with one rotation per lane for
+// each joint and body a segment uses; sizes: each in[] and out[] array's
+// length (0 = null)
+extern "C" long long count_lane_contact(int adj, const int* plan,
+                                        const double* const* in,
+                                        const int* in_sizes, const int* dims,
+                                        const int* out_sizes, int want) {
+  std::vector<std::vector<C>> ins(14), outs(8);
+  const C* ip[14];
+  C* op[8];
+  for (int i = 0; i < 14; ++i) {
+    ins[i].resize(in_sizes[i]);
+    for (int e = 0; e < in_sizes[i]; ++e) ins[i][e] = C(in[i][e]);
+    ip[i] = in_sizes[i] ? ins[i].data() : nullptr;
+  }
+  for (int i = 0; i < 8; ++i) {
+    outs[i].resize(out_sizes[i]);
+    op[i] = out_sizes[i] ? outs[i].data() : nullptr;
+  }
+  Args<C> a;
+  Outs<C> o;
+  unpack(ip, dims, op, want, adj, a, o);
+  g_ops = 0;
+  C q[4] = {C(1), C(0), C(0), C(0)}, M[3][3];
+  quat_to_mat(q, M);
+  const long long per_rotation = g_ops;
+  g_ops = 0;
+  run(adj, plan, a, o, true);
+  long long rotations = 0;
+  for (char u : rotated(plan, a.J, a.NB)) rotations += u;
+  return g_ops + per_rotation * rotations * a.B;
+}
+"""
+
+
+class HostLaneContact:
+    """K1 and K1T's per-tile routines (``csrc/lane_contact.cu``) on the
+    CPU, for the scene of ``op`` (a ``PairWrenches``): ``forward(*args)``
+    and ``adjoint(args, cots, need)`` take and give what ``run_kernel`` and
+    ``run_adjoint`` do, on float64 CPU tensors; ``count(args, cots)`` gives
+    the operations (K1, K1T) the function needs on the live lanes."""
+
+    _built = None          # (directory, library): one build per process
+
+    def __init__(self, op):
+        self.op = op
+        if HostLaneContact._built is None:
+            workdir = tempfile.TemporaryDirectory()
+            lib = build(workdir.name, _LC_SRC)
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.host_lane_contact.argtypes = [i, p, p, p, p, i]
+            lib.host_lane_contact.restype = None
+            lib.count_lane_contact.argtypes = [i, p, p, p, p, p, i]
+            lib.count_lane_contact.restype = ctypes.c_longlong
+            HostLaneContact._built = (workdir, lib)
+        self.lib = HostLaneContact._built[1]
+
+    def _tables(self, args, cots, outs):
+        params = args[7]
+        B = args[0].shape[-1]
+        row_stride, lane_stride = (B, 1) if params.ndim == 3 else (1, 0)
+        op = self.op
+        dims = np.asarray([row_stride, lane_stride, op.J, op.NB,
+                           params.shape[0], op.ntac, op.nsum, B], np.int32)
+        ins = list(args) + list(cots)
+        ptrs = lambda ts: np.asarray([0 if t is None else t.data_ptr()
+                                      for t in ts], np.uint64)
+        return dims, ptrs(ins), ptrs(outs), ins
+
+    def _launch(self, adjoint, args, cots, outs, want):
+        dims, ins, outp, _ = self._tables(args, cots, outs)
+        plan = np.ascontiguousarray(self.op.plan)
+        self.lib.host_lane_contact(int(adjoint), plan.ctypes.data,
+                                   ins.ctypes.data, dims.ctypes.data,
+                                   outp.ctypes.data, want)
+
+    def forward(self, *args):
+        return self.op.forward_with(args, self._launch, torch.float64)
+
+    def adjoint(self, args, cots, need=(True,) * 11):
+        return self.op.adjoint_with(args, cots, need, self._launch,
+                                    torch.float64)
+
+    def count(self, args, cots, need=(True,) * 11):
+        """(K1, K1T) operations at these inputs (float64 CPU tensors), K1T
+        asked for the cotangents ``need`` names: what the function needs,
+        not what the kernels' decomposition repeats (``run``'s
+        ``counting`` in the host source)."""
+        counts = []
+
+        def launch(adj, a, cots, outs, want):
+            outs = tuple(outs) + (None,) * (8 - len(outs))   # K1 has 4
+            dims, ins, outp, tensors = self._tables(a, cots, outs)
+            sizes = lambda ts: np.asarray([0 if t is None else t.numel()
+                                           for t in ts], np.int32)
+            plan = np.ascontiguousarray(self.op.plan)
+            counts.append(self.lib.count_lane_contact(
+                int(adj), plan.ctypes.data, ins.ctypes.data,
+                sizes(tensors).ctypes.data, dims.ctypes.data,
+                sizes(outs).ctypes.data, want))
+
+        self.op.forward_with(args, launch, torch.float64)
+        self.op.adjoint_with(args, cots, need, launch, torch.float64)
+        return tuple(counts)
+
+
 UNITS = ("Lq0", "Lq1", "Lq2", "Lr0", "Lr1", "Lr2", "R0", "R1", "factor",
          "solve", "momentum_exec", "el_pair_exec", "columns_exec",
          "momentum_column_exec")
@@ -262,7 +520,8 @@ def available() -> bool:
 
 
 def build(workdir: str, source: str) -> ctypes.CDLL:
-    """Compile ``source`` (which includes megastep.cu) into ``workdir``."""
+    """Compile ``source`` (which includes a kernel source of csrc/) into
+    ``workdir``."""
     with open(os.path.join(workdir, "cuda_runtime.h"), "w") as fp:
         fp.write(_STUB)
     src = os.path.join(workdir, "host.cpp")

@@ -1,4 +1,5 @@
-"""K1: the fused lane-major contact pair-wrench op (the residual hot path).
+"""K1 and K1T: the fused lane-major contact pair-wrench op and its adjoint
+(the residual hot path).
 
 Port of ``tactilesimulation_tpu/ops/lane_contact.py``. The op fuses, per
 contact point and tactile marker,
@@ -14,16 +15,25 @@ so that only the small per-joint arrays ((., J|NB, B)) and the dense tactile
 rows cross device memory.
 
 Routes:
-- a CUDA tensor goes to the hand-written kernel ``csrc/lane_contact.cu``
-  (built with nvcc at first use, bound with ctypes); anything else the
-  kernel does not take (dtype, shape, device) raises;
-- a CPU tensor goes to the plain PyTorch version ``wrenches_ref``.
+- a CUDA tensor goes to the hand-written kernels ``csrc/lane_contact.cu``
+  (built with nvcc at first use, bound with ctypes): K1 forward, K1T for
+  the backward; anything the kernels do not take (dtype, shape, device)
+  raises;
+- a CPU tensor goes to the plain PyTorch version ``wrenches_ref`` and, for
+  the backward, its VJP.
 
-Differentiation: ``_PairWrenchesFn`` is an ``autograd.Function`` whose
-backward recomputes the plain twin once and pulls every cotangent through
-that one graph, as the JAX package's ``custom_vjp`` does. There is no
-backward kernel: the chord Jacobian's n pullbacks are the only place the
-twin runs on the card's path (``PairWrenches.twin_vjps`` counts them).
+Both kernels split a 32-lane tile's points into pieces dealt to the warps
+of a thread-block cluster (``build_plan``; the layout is argued in the
+``.cu``). ``megastep_host.py`` builds their per-tile routines as host C++,
+so the CPU tests hold the CUDA source itself to the JAX package.
+
+Differentiation: ``_PairWrenchesFn`` is an ``autograd.Function``. On the
+card its backward launches K1T once per call (a chord Jacobian's n
+pullbacks are n launches; the tactile observation's BPTT pullback is one),
+computing only the cotangents autograd asks for; the plain twin never runs
+there. On the CPU the backward recomputes the twin once per forward and
+pulls every cotangent through that one graph, as the JAX package's
+``custom_vjp`` does (``twin_recomputes``, ``twin_vjps`` count that route).
 """
 
 from __future__ import annotations
@@ -196,11 +206,104 @@ def wrenches_ref(segments, J, ntac, jp, jq, Om, be, bp, bquat, sizes,
 
 
 # ---------------------------------------------------------------------------
-# the op: kernel on the card, plain version on the CPU
+# the kernels' plan: pieces dealt in rounds (csrc/lane_contact.cu)
+# ---------------------------------------------------------------------------
+
+TILE = 32             # lanes per block (kTile)
+WARPS = 4             # warps per block (kWarps)
+CH = 8                # points per piece (kCH)
+MAX_SPLIT = 8         # blocks per tile: the portable cluster size
+HEADER = 16
+
+
+def build_plan(segments):
+    """The int32 plan K1 and K1T read (``csrc/lane_contact.cu``).
+
+    Header (``HEADER`` ints): [segments S, pieces NP, blocks per tile NS,
+    rounds, most segments a block stages in a round, repeated tactile rows,
+    their points, offsets of the segment, piece, round, stage, repeated-row
+    and repeated-point tables, total]. Tables: segments (S, 8) as
+    ``build_segments`` gives them (offset into ``xi_packed``, n, joint,
+    prim_body, prim_joint, gtype, param_row, tac0); pieces (NP, 6): segment,
+    first point, n <= CH, first tactile row or -1, first scratch point or -1
+    (rows that several segments write), staging slot; per (round, block):
+    first staged segment, count; the staged segment ids; per repeated row:
+    row, first entry, count; the entries: scratch points in segment order.
+
+    A piece is at most CH points of one segment, cut where a tactile row
+    starts or stops being shared with another segment. NS is the smallest
+    power of two (at most MAX_SPLIT) whose NS x WARPS warps take every
+    piece in one round, so it depends on the scene alone."""
+    offs = np.cumsum([0] + [s.n for s in segments])
+    owners = {}
+    for si, s in enumerate(segments):
+        if s.tac0 >= 0:
+            for k in range(s.n):
+                owners.setdefault(s.tac0 + k, []).append((si, k))
+    shared_row = {r for r, o in owners.items() if len(o) > 1}
+    pieces, scratch, nrep_pts = [], {}, 0
+    for si, s in enumerate(segments):
+        k0 = 0
+        while k0 < s.n:
+            rep = s.tac0 >= 0 and s.tac0 + k0 in shared_row
+            n = 1
+            while (n < CH and k0 + n < s.n
+                   and (s.tac0 >= 0 and s.tac0 + k0 + n in shared_row) == rep):
+                n += 1
+            if rep:
+                for k in range(k0, k0 + n):
+                    scratch[(si, k)] = nrep_pts + k - k0
+            pieces.append([si, int(offs[si]) + k0, n,
+                           s.tac0 + k0 if s.tac0 >= 0 else -1,
+                           nrep_pts if rep else -1, 0])
+            nrep_pts += n if rep else 0
+            k0 += n
+    NP = len(pieces)
+    ns = 1
+    while ns < MAX_SPLIT and ns * WARPS < NP:
+        ns *= 2
+    per_round = ns * WARPS
+    rounds = (NP + per_round - 1) // per_round
+    round_tab, stage = [], []
+    for r in range(rounds):
+        for y in range(ns):
+            p0 = (r * ns + y) * WARPS
+            segs = []
+            for p in range(p0, min(p0 + WARPS, NP)):
+                if pieces[p][0] not in segs:
+                    segs.append(pieces[p][0])
+                pieces[p][5] = segs.index(pieces[p][0])
+            round_tab.append([len(stage), len(segs)])
+            stage += segs
+    rep, rep_idx = [], []
+    for r in sorted(shared_row):
+        rep.append([r, len(rep_idx), len(owners[r])])
+        rep_idx += [scratch[o] for o in owners[r]]
+    seg = [[int(offs[i]), s.n, s.joint, s.prim_body, s.prim_joint, s.gtype,
+            s.param_row, s.tac0] for i, s in enumerate(segments)]
+    tables = [np.asarray(t, np.int64).reshape(-1, w) for t, w in (
+        (seg, 8), (pieces, 6), (round_tab, 2), (stage, 1), (rep, 3),
+        (rep_idx, 1))]
+    hdr = np.zeros(HEADER, np.int64)
+    hdr[:7] = [len(segments), NP, ns, rounds,
+               max(c for _, c in round_tab), len(rep), nrep_pts]
+    o = HEADER
+    for i, t in enumerate(tables):
+        hdr[7 + i] = o
+        o += t.size
+    hdr[13] = o
+    return np.concatenate([hdr] + [t.ravel() for t in tables]).astype(
+        np.int32)
+
+
+# ---------------------------------------------------------------------------
+# the op: kernels on the card, plain version on the CPU
 # ---------------------------------------------------------------------------
 
 _ARG_NAMES = ("jp", "jq", "Om", "be", "bp", "bquat", "sizes", "params",
               "gpos", "gn", "xi_packed")
+# K1T's per-tile partials: which shared leaf each bit of `want` asks for
+_WANT = {6: 1, 7: 2, 8: 4, 9: 8, 10: 16}
 
 
 class _PairWrenchesFn(torch.autograd.Function):
@@ -208,6 +311,7 @@ class _PairWrenchesFn(torch.autograd.Function):
     def forward(ctx, op, *args):
         ctx.op = op
         ctx.twin = None
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(*args)
         if args[0].is_cuda:
             return op.run_kernel(*args)
@@ -217,23 +321,32 @@ class _PairWrenchesFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gF, gT, gtac):
-        """Pull the cotangent through the plain twin, recomputed once per
-        forward and reused by every backward call on the same graph (the
-        chord Jacobian makes n of them)."""
+        """On the card: one K1T launch. On the CPU: pull the cotangent
+        through the plain twin, recomputed once per forward and reused by
+        every backward call on the same graph (the chord Jacobian makes n of
+        them)."""
         op = ctx.op
         need = ctx.needs_input_grad[1:]
+        args = ctx.saved_tensors
+        cots = (gF, gT, gtac)
+        if all(g is None for g in cots) or not any(need):
+            return (None,) * (1 + len(need))
+        if args[0].is_cuda:
+            return (None,) + op.run_adjoint(args, cots, need)
         if ctx.twin is None:
             with torch.enable_grad():
                 ins = [a.detach().requires_grad_(nd)
-                       for a, nd in zip(ctx.saved_tensors, need)]
+                       for a, nd in zip(args, need)]
                 outs = op.reference(*ins)
             ctx.twin = (ins, outs)
             op.twin_recomputes += 1
         ins, outs = ctx.twin
         op.twin_vjps += 1
         wrt = [x for x, nd in zip(ins, need) if nd]
-        live = [(o, g) for o, g in zip(outs, (gF, gT, gtac))
-                if o.requires_grad]
+        live = [(o, g) for o, g in zip(outs, cots)
+                if o.requires_grad and g is not None]
+        if not live:
+            return (None,) * (1 + len(need))
         grads = iter(torch.autograd.grad([o for o, _ in live],
                                          wrt, [g for _, g in live],
                                          retain_graph=True,
@@ -246,9 +359,10 @@ class PairWrenches:
     gpos, gn, xi_packed) -> (F (3,J,B), Tau (3,J,B), tac (3,ntac,B))``.
 
     ``xi_packed`` is the compact point table from ``pack_points``.
-    ``launches`` counts kernel launches (and nothing else); ``twin_vjps``
-    counts backward calls through the plain twin, ``twin_recomputes`` the
-    twin forwards those calls needed."""
+    ``launches`` counts K1 launches and ``bwd_launches`` K1T launches (and
+    nothing else); ``twin_vjps`` counts backward calls through the plain
+    twin (the CPU route), ``twin_recomputes`` the twin forwards those calls
+    needed."""
 
     def __init__(self, struct):
         (self.segments, self.n_rows, self.src_idx,
@@ -258,16 +372,17 @@ class PairWrenches:
         self.ntac = len(struct.tac_joint)
         self.nsum = len(self.src_idx)
         self.launches = 0
+        self.bwd_launches = 0
         self.twin_vjps = 0
         self.twin_recomputes = 0
-        # compact per-segment table for the kernel: offsets into xi_packed
-        seg = []
-        off = 0
-        for s in self.segments:
-            seg.append([off, s.n, s.joint, s.prim_body, s.prim_joint,
-                        s.gtype, s.param_row, s.tac0])
-            off += s.n
-        self._seg_np = np.asarray(seg, np.int32).reshape(-1, 8)
+        self.plan = (build_plan(self.segments) if self.segments
+                     else np.zeros(HEADER, np.int32))   # K1 and K1T
+        self.header = self.plan[:HEADER].copy()
+        covered = {s.tac0 + k for s in self.segments if s.tac0 >= 0
+                   for k in range(s.n)}
+        self._tac_full = covered == set(range(self.ntac))
+        self._max_row = max((s.param_row for s in self.segments), default=-1)
+        self._shapes = {}
         self._dev = {}
 
     def _on(self, name, host, device):
@@ -280,7 +395,8 @@ class PairWrenches:
         return t
 
     def reset_counts(self):
-        self.launches = self.twin_vjps = self.twin_recomputes = 0
+        self.launches = self.bwd_launches = 0
+        self.twin_vjps = self.twin_recomputes = 0
 
     def __call__(self, *args):
         if len(args) != len(_ARG_NAMES):
@@ -298,58 +414,140 @@ class PairWrenches:
         return wrenches_ref(self.segments, self.J, self.ntac, jp, jq, Om, be,
                             bp, bquat, sizes, params, gpos, gn, xi_rows)
 
-    def _check(self, args):
-        jp = args[0]
-        B = jp.shape[-1]
-        J, NB = self.J, self.NB
-        K = args[7].shape[0]
-        shapes = {"jp": (3, J, B), "jq": (4, J, B), "Om": (3, J, B),
-                  "be": (3, J, B), "bp": (3, NB, B), "bquat": (4, NB, B),
-                  "sizes": (NB, 3), "gpos": (3,), "gn": (3,),
-                  "xi_packed": (self.nsum, 3)}
-        for name, a in zip(_ARG_NAMES, args):
-            if a.device != jp.device:
-                raise ValueError(f"{name} on {a.device}, jp on {jp.device}")
-            if a.dtype != torch.float32:
-                raise TypeError(f"K1 takes float32 only; {name} is {a.dtype}")
-            if not a.is_contiguous():
-                raise ValueError(f"{name} is not contiguous")
-            want = shapes.get(name)
-            if want is not None and tuple(a.shape) != want:
-                raise ValueError(f"{name} has shape {tuple(a.shape)}, "
-                                 f"expected {want}")
-        params = args[7]
-        if tuple(params.shape) not in ((K, 4), (K, 4, B)):
-            raise ValueError(f"params has shape {tuple(params.shape)}")
-        if self.segments and max(s.param_row for s in self.segments) >= K:
-            raise ValueError("params has fewer rows than the segments use")
+    def _check(self, args, dtype=torch.float32):
+        jp, params = args[0], args[7]
+        B, K = jp.shape[-1], params.shape[0]
+        shapes = self._shapes.get((B, K, params.dim()))
+        if shapes is None:
+            J, NB = self.J, self.NB
+            if params.dim() not in (2, 3) or (
+                    tuple(params.shape[1:]) != ((4,) if params.dim() == 2
+                                                else (4, B))):
+                raise ValueError(f"params has shape {tuple(params.shape)}")
+            if self.segments and self._max_row >= K:
+                raise ValueError("params has fewer rows than the segments "
+                                 "use")
+            shapes = ((3, J, B), (4, J, B), (3, J, B), (3, J, B),
+                      (3, NB, B), (4, NB, B), (NB, 3), tuple(params.shape),
+                      (3,), (3,), (self.nsum, 3))
+            self._shapes[(B, K, params.dim())] = shapes
+        dev = jp.device
+        for name, a, shape in zip(_ARG_NAMES, args, shapes):
+            if (a.dtype != dtype or a.shape != shape or a.device != dev
+                    or not a.is_contiguous()):
+                _check_tensor(name, a, dev, shape, dtype)
         return B
 
     def run_kernel(self, jp, jq, Om, be, bp, bquat, sizes, params, gpos, gn,
                    xi_packed):
         """Launch K1 on the current stream (CUDA float32 tensors only)."""
-        args = (jp, jq, Om, be, bp, bquat, sizes, params, gpos, gn, xi_packed)
-        B = self._check(args)
-        F = torch.empty((3, self.J, B), dtype=torch.float32, device=jp.device)
-        T = torch.empty_like(F)
-        tac = torch.empty((3, self.ntac, B), dtype=torch.float32,
-                          device=jp.device)
-        if B == 0:
-            return F, T, tac
-        seg = self._on("segments", self._seg_np, jp.device)
-        batched = params.ndim == 3
-        row_stride, lane_stride = (B, 1) if batched else (1, 0)
-        lib = _library()
-        stream = torch.cuda.current_stream(jp.device).cuda_stream
-        err = lib.lane_contact_launch(
-            *(a.data_ptr() for a in args[:8]), row_stride, lane_stride,
-            gpos.data_ptr(), gn.data_ptr(), xi_packed.data_ptr(),
-            seg.data_ptr(), len(self.segments), self.J, self.NB, self.ntac,
-            B, F.data_ptr(), T.data_ptr(), tac.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"K1 launch failed: CUDA error {err}")
-        self.launches += 1
+        return self.forward_with(
+            (jp, jq, Om, be, bp, bquat, sizes, params, gpos, gn, xi_packed),
+            self._cuda_launch)
+
+    def run_adjoint(self, args, cots, need):
+        """Launch K1T on the current stream: the cotangents of the 11 inputs
+        (None where ``need`` is False) from those of (F, Tau, tac), any of
+        which may be None (zero). CUDA float32 tensors only."""
+        return self.adjoint_with(args, cots, need, self._cuda_launch)
+
+    def forward_with(self, args, launch, dtype=torch.float32):
+        """K1 through ``launch(adjoint, args, cots, outs, want)``: the
+        card's (``run_kernel``) or ``megastep_host``'s host build
+        (float64)."""
+        B = self._check(args, dtype)
+        new = lambda *shape: torch.empty(shape, dtype=dtype,
+                                         device=args[0].device)
+        F, T = new(3, self.J, B), new(3, self.J, B)
+        tac = new(3, self.ntac, B)
+        if not self._tac_full:          # rows no segment writes
+            tac.zero_()
+        if B == 0 or not self.segments:
+            return F.zero_(), T.zero_(), tac.zero_()
+        nrep = int(self.header[6])
+        outs = (F, T, tac, new(nrep, 3, B) if nrep else None)
+        launch(False, args, (None,) * 3, outs, 0)
         return F, T, tac
+
+    def adjoint_with(self, args, cots, need, launch, dtype=torch.float32):
+        """K1T through ``launch`` (see ``forward_with``); the per-tile
+        partials of the shared leaves are summed over tiles here."""
+        B = self._check(args, dtype)
+        dev = args[0].device
+        shapes = ((3, self.J, B), (3, self.J, B), (3, self.ntac, B))
+        cots = tuple(None if g is None else g.contiguous() for g in cots)
+        for name, g, shape in zip(("gF", "gT", "gtac"), cots, shapes):
+            if g is not None:
+                _check_tensor(name, g, dev, shape, dtype)
+        params = args[7]
+        per_lane = params.ndim == 3
+        grads = [torch.empty_like(a) if nd else None
+                 for a, nd in zip(args, need)]
+        want = sum(bit for i, bit in _WANT.items()
+                   if need[i] and not (i == 7 and per_lane))
+        for i in _WANT:
+            if not (i == 7 and per_lane):
+                grads[i] = None
+        K = params.shape[0]
+        NB, nsum = self.NB, self.nsum
+        width = 3 * NB + 4 * K + 6 + 3 * nsum
+        if B == 0 or not self.segments:
+            sh = torch.zeros(width, dtype=dtype, device=dev)
+            grads = [None if g is None else g.zero_() for g in grads]
+        else:
+            ntiles = (B + TILE - 1) // TILE
+            shared = (torch.empty((ntiles, width), dtype=dtype, device=dev)
+                      if want else None)
+            launch(True, args, cots, (*grads[:6], grads[7], shared), want)
+            sh = shared.sum(0) if want else None     # over tiles, in order
+        views = {6: (0, (NB, 3)), 7: (3 * NB, (K, 4)), 8: (3 * NB + 4 * K, (3,)),
+                 9: (3 * NB + 4 * K + 3, (3,)),
+                 10: (3 * NB + 4 * K + 6, (nsum, 3))}
+        for i, (o, shape) in views.items():
+            if need[i] and not (i == 7 and per_lane):
+                n = int(np.prod(shape))
+                grads[i] = sh[o:o + n].view(shape)
+        return tuple(grads)
+
+    def _cuda_launch(self, adjoint, args, cots, outs, want):
+        jp, params = args[0], args[7]
+        B, K = jp.shape[-1], params.shape[0]
+        row_stride, lane_stride = (B, 1) if params.ndim == 3 else (1, 0)
+        plan = self._on("plan", self.plan, jp.device)
+        ptr = lambda t: 0 if t is None else t.data_ptr()
+        head = (self.header.ctypes.data, plan.data_ptr(),
+                *(a.data_ptr() for a in args[:8]), row_stride, lane_stride,
+                *(a.data_ptr() for a in args[8:]), self.J, self.NB, K,
+                self.ntac, self.nsum, B)
+        stream = torch.cuda.current_stream(jp.device).cuda_stream
+        lib = _library()
+        if adjoint:
+            err = lib.lane_contact_adjoint_launch(
+                *head, *(ptr(t) for t in cots + outs), want, stream)
+        else:
+            err = lib.lane_contact_launch(*head, *(ptr(t) for t in outs),
+                                          stream)
+        if err != 0:
+            raise RuntimeError(f"K1{'T' if adjoint else ''} launch failed: "
+                               f"CUDA error {err}")
+        if adjoint:
+            self.bwd_launches += 1
+        else:
+            self.launches += 1
+
+
+def _check_tensor(name, a, device, shape, dtype):
+    """Raise on what the kernels do not take."""
+    if a.device != device:
+        raise ValueError(f"{name} on {a.device}, jp on {device}")
+    if a.dtype != dtype:
+        raise TypeError(f"K1 takes {str(dtype)[6:]} only; {name} is "
+                        f"{a.dtype}")
+    if tuple(a.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(a.shape)}, "
+                         f"expected {shape}")
+    if not a.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
 
 
 def _library():
@@ -357,11 +555,30 @@ def _library():
     lib = _build.load("lane_contact")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lane_contact_launch.argtypes = (
-            [p] * 8 + [i, i] + [p] * 4 + [i] * 5 + [p] * 3 + [p])
-        lib.lane_contact_launch.restype = ctypes.c_int
+        head = [p, p] + [p] * 8 + [i, i] + [p] * 3 + [i] * 6
+        lib.lane_contact_launch.argtypes = head + [p] * 4 + [p]
+        lib.lane_contact_launch.restype = i
+        lib.lane_contact_adjoint_launch.argtypes = (
+            head + [p] * 3 + [p] * 8 + [i, p])
+        lib.lane_contact_adjoint_launch.restype = i
+        lib.lane_contact_kernel_info.argtypes = [p, i, i, i, i, p]
+        lib.lane_contact_kernel_info.restype = i
         lib._typed = True
     return lib
+
+
+def kernel_info(op, K, B):
+    """{"K1": ..., "K1T": ...}: registers, local bytes per thread, dynamic
+    shared bytes per block and resident clusters on the device, at op's
+    plan with K parameter rows and B lanes (needs the card)."""
+    out = np.zeros(8, np.int32)
+    err = _library().lane_contact_kernel_info(
+        op.header.ctypes.data, op.J, op.NB, K, B, out.ctypes.data)
+    if err != 0:
+        raise RuntimeError(f"lane_contact_kernel_info: CUDA error {err}")
+    keys = ("registers", "local_bytes", "dynamic_shared_bytes", "clusters")
+    return {name: dict(zip(keys, out[4 * i:4 * i + 4].tolist()))
+            for i, name in enumerate(("K1", "K1T"))}
 
 
 def make_pair_wrenches(struct):

@@ -11,23 +11,19 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (ACTOR_CFG, K23_F32_VS_F64, K23_F64_TOL, K4_TOL,
-                        Smoke, contact_state, cylinder_probe)
+from chip_smoke import (ACTOR_CFG, K1T_TOL, K1_SCENES, K23_F32_VS_F64,
+                        K23_F64_TOL, K4_TOL, Smoke, contact_state,
+                        pair_wrench_inputs)
 from tactilesimulation_tpu_torch.envs import tactile_push_lanes
 from tactilesimulation_tpu_torch.model import task_scenes
 from tactilesimulation_tpu_torch.models.nets import DiagGaussianActor
 from tactilesimulation_tpu_torch.ops import (dense_contact, lane_contact,
                                             megastep, tactile_query)
-from tactilesimulation_tpu_torch.sim import contact, dense_single, lanes
+from tactilesimulation_tpu_torch.sim import dense_single, lanes
 from tactilesimulation_tpu_torch.sim import simulation
 
 pytestmark = pytest.mark.cuda
 B = 256
-SCENES = {
-    "tactile_push": task_scenes.tactile_push,
-    "rolling_ball_8": lambda: task_scenes.rolling_ball(resolution=8),
-    "cylinder_probe": lambda: cylinder_probe(task_scenes),
-}
 
 
 @pytest.fixture
@@ -40,29 +36,30 @@ def card():
 
 
 def _k1_inputs(name, dev, per_lane):
-    struct, model = SCENES[name]()
-    q, v = contact_state(name, model.q_init.numpy(), B, seed=0)
-    model = model.to(dev, torch.float32)
-    q = torch.as_tensor(q, dtype=torch.float32, device=dev)
-    v = torch.as_tensor(v, dtype=torch.float32, device=dev)
-    op = lane_contact.PairWrenches(struct)
-    with torch.no_grad():
-        jp, jq, bp, bquat, _, _, _, Om, be = lanes._fused_small_stage(
-            struct, model, q, v)
-        params = contact.combined_params(model)
-        if per_lane:
-            rng = np.random.RandomState(1)
-            params = params[:, :, None] * torch.as_tensor(
-                rng.uniform(0.5, 1.5, tuple(params.shape) + (B,)),
-                dtype=torch.float32, device=dev)
-        xi = lane_contact.pack_points(struct, model, op.src_idx)
-    args = [jp, jq, Om, be, bp, bquat, model.body_size, params,
-            model.ground_pos, model.ground_normal, xi]
-    return op, [a.contiguous() for a in args]
+    op, args, lanes_prm = pair_wrench_inputs(name, B)
+    if per_lane:
+        args[7] = lanes_prm
+    return op, [a.to(dev, torch.float32).contiguous() for a in args]
+
+
+def _cotangents(op, args, seed=2):
+    rng = np.random.RandomState(seed)
+    Bk = args[0].shape[-1]
+    return [torch.as_tensor(rng.randn(3, n, Bk), dtype=torch.float32,
+                            device=args[0].device)
+            for n in (op.J, op.J, op.ntac)]
+
+
+def _twin_vjp(op, args, cots):
+    ins = [a.detach().requires_grad_() for a in args]
+    outs = op.reference(*ins)
+    live = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+    return torch.autograd.grad([o for o, _ in live], ins,
+                               [c for _, c in live], allow_unused=True)
 
 
 @pytest.mark.parametrize("per_lane", [False, True], ids=["static", "lanes"])
-@pytest.mark.parametrize("name", sorted(SCENES))
+@pytest.mark.parametrize("name", K1_SCENES)
 def test_k1_matches_plain_version(card, name, per_lane):
     op, args = _k1_inputs(name, card, per_lane)
     with torch.no_grad():
@@ -74,6 +71,71 @@ def test_k1_matches_plain_version(card, name, per_lane):
         if w.numel():
             scale = float(w.abs().max()) + 1e-6
             assert float((g - w).abs().max()) <= 1e-5 * scale
+
+
+# K1T against the twin's VJP in float32 (tolerance and its reason:
+# chip_smoke.py K1T_TOL)
+@pytest.mark.parametrize("per_lane", [False, True], ids=["static", "lanes"])
+@pytest.mark.parametrize("name", K1_SCENES)
+def test_k1t_matches_twin_vjp(card, name, per_lane):
+    op, args = _k1_inputs(name, card, per_lane)
+    cots = _cotangents(op, args)
+    got = op.run_adjoint(args, cots, (True,) * 11)
+    want = _twin_vjp(op, args, cots)
+    assert op.bwd_launches == 1 and op.twin_vjps == 0
+    for g, w, what in zip(got, want, lane_contact._ARG_NAMES):
+        if w is None:               # an input no segment reads
+            assert float(g.abs().max()) == 0.0, what
+            continue
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        assert err <= K1T_TOL["rel"] * scale, (what, err, scale)
+        if scale > 0:
+            cos = float((g * w).sum() / (g.norm() * w.norm()))
+            assert cos >= K1T_TOL["cos"], (what, cos)
+
+
+def test_k1_and_k1t_are_bit_equal_across_launches(card):
+    op, args = _k1_inputs("stable_grasp", card, True)
+    cots = _cotangents(op, args)
+    with torch.no_grad():
+        first, second = op(*args), op(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    first = op.run_adjoint(args, cots, (True,) * 11)
+    second = op.run_adjoint(args, cots, (True,) * 11)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_k1t_never_reaches_the_twin(card, monkeypatch):
+    op, args = _k1_inputs("tactile_push", card, False)
+    ins = [a.detach().requires_grad_(i < 6) for i, a in enumerate(args)]
+    F, T, tac = op(*ins)
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version reached with CUDA tensors")
+
+    monkeypatch.setattr(op, "reference", refuse)
+    grads = torch.autograd.grad(tac.sum() + F.sum(), ins[:6])
+    assert (op.launches, op.bwd_launches, op.twin_vjps,
+            op.twin_recomputes) == (1, 1, 0, 0)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def test_k1t_computes_what_is_asked(card):
+    """Only the cotangents asked for come back; a None cotangent counts as
+    zero; what is asked equals the full launch's."""
+    op, args = _k1_inputs("tactile_insertion", card, True)
+    cots = _cotangents(op, args)
+    full = op.run_adjoint(args, [cots[0], cots[1], None], (True,) * 11)
+    need = (False, True, False, False, True, False, True, False, False,
+            False, True)
+    some = op.run_adjoint(args, [cots[0], cots[1], None], need)
+    for nd, g, w in zip(need, some, full):
+        assert (g is None) == (not nd)
+        if nd:
+            assert torch.equal(g, w)
 
 
 def test_k1_forward_never_runs_the_plain_version(card, monkeypatch):
@@ -111,7 +173,10 @@ def test_slice_runs_through_k1(card):
     actor = DiagGaussianActor(env.obs_size()[0], env.ndof_u,
                               ACTOR_CFG).to(card)
     rewards, dones, infos = env.batched_rollout_fn(actor.act, 1)(16)
-    assert env.pair_wrenches.launches == 1 + 47
+    pw = env.pair_wrenches
+    assert pw.launches == 1 + 47
+    # the chord factor's 7 pullbacks are 7 K1T launches, no twin
+    assert (pw.bwd_launches, pw.twin_vjps, pw.twin_recomputes) == (7, 0, 0)
     assert tuple(rewards.shape) == (16, 1)
     assert bool(torch.isfinite(rewards).all())
     assert all(bool(torch.isfinite(x).all()) for x in infos.values())
@@ -271,7 +336,11 @@ def test_mega_rollout_backward_runs_through_k2_k3(card):
     loss = -rewards.sum(dim=1).mean()
     grads = torch.autograd.grad(loss, list(actor.mlp.parameters()))
     assert (env.megastep.fwd_launches, env.megastep.bwd_launches) == (2, 2)
-    assert env.pair_wrenches.launches == 1 + 2
+    pw = env.pair_wrenches
+    assert pw.launches == 1 + 2
+    # the tactile observation's pullback: K1T for each observation an action
+    # was taken on (the reset's), never the twin
+    assert (pw.bwd_launches, pw.twin_vjps, pw.twin_recomputes) == (1, 0, 0)
     assert all(bool(torch.isfinite(x).all()) for x in grads)
     assert sum(float(x.abs().sum()) for x in grads) > 0
 
