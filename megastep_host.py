@@ -50,6 +50,13 @@ rotations staged in every block that takes one of its pieces, counted once
 per lane instead) or spends on zeros (the quaternion reverse of a joint
 or body no segment rotates).
 
+For the tactile read (``csrc/dense_contact.cu``), ``HostTactileRead``
+builds the kernel's prologue and per-row routine (a second or two): in
+float64 it runs them on one thread in the kernel's order from the plan the
+wrapper packs, so a CPU test holds the CUDA source to the JAX package's
+``dynamics.tactile_field``; on the counting scalar it counts the
+operations one read needs, the prologue once (``chip_smoke.py``'s bound).
+
     python megastep_host.py      # the per-lane units on a contact state
 """
 
@@ -82,7 +89,9 @@ extern dim3 blockIdx, threadIdx, blockDim;
 typedef int cudaError_t;
 """
 
-_COUNT_SRC = r"""
+# the counting scalar: every +, -, *, / and every sqrt, sin, cos, abs, max
+# and min adds one to g_ops; comparisons are free
+_SCALAR_C = r"""
 #include <math.h>
 long long g_ops = 0;
 struct C {
@@ -108,6 +117,9 @@ inline C sabs(C a) { ++g_ops; return C(fabs(a.x)); }
 inline C smax2(C a, C b) { ++g_ops; return a.x > b.x ? a : b; }
 inline C smin2(C a, C b) { ++g_ops; return a.x < b.x ? a : b; }
 inline C with_primal(C, C p) { return p; }
+"""
+
+_COUNT_SRC = _SCALAR_C + r"""
 #include "cuda_runtime.h"
 dim3 blockIdx, threadIdx, blockDim;
 #include "megastep.cu"
@@ -439,6 +451,53 @@ extern "C" long long count_lane_contact(int adj, const int* plan,
 """
 
 
+_TR_SRC = _SCALAR_C + r"""
+#include <algorithm>
+#include <vector>
+#include "cuda_runtime.h"
+dim3 blockIdx, threadIdx, blockDim;
+#include "dense_contact.cu"
+
+// the read kernel's phases in their order, on one thread: the prologue once
+// (FK and its JVP: every joint's local frame, then the joints depth by
+// depth; each joint's twist, each pair's scalars), then every row
+template <class T>
+void run_read(const int* it, const T* ft, const T* q, const T* v, int n,
+              int J, int P, int N, T* out) {
+  const ReadScene<T> sc = load_read_scene(it, ft, n, J, P, N);
+  std::vector<double> box(read_shared_bytes<T>(n, J, P) / 8 + 1);
+  const ReadShared<T> sh = carve_read_shared<T>(box.data(), n, J, P);
+  for (int i = 0; i < n; ++i) sh.qd[i] = Dual<T>{q[i], v[i]};
+  for (int j = 0; j < J; ++j) read_fk_local(sc, sh, j);
+  int deepest = 0;
+  for (int j = 0; j < J; ++j) deepest = std::max(deepest, sc.depth[j]);
+  for (int d = 1; d <= deepest; ++d)
+    for (int j = 0; j < J; ++j)
+      if (sc.depth[j] == d) read_fk_attach(sc, sh, j);
+  for (int j = 0; j < J; ++j) read_twist(sh, j);
+  for (int k = 0; k < P; ++k) read_pair(sc, sh, k);
+  for (int i = 0; i < N; ++i) read_row(sc, sh, i, out + 3 * i);
+}
+
+extern "C" void host_tactile_read(const int* it, const double* ft,
+                                  const double* q, const double* v, int n,
+                                  int J, int P, int N, double* out) {
+  run_read<double>(it, ft, q, v, n, J, P, N, out);
+}
+
+// the same on the counting scalar: the operations of one read (the
+// prologue counted once: every block repeats it)
+extern "C" long long count_tactile_read(const int* it, const double* ft,
+                                        int nf, const double* q,
+                                        const double* v, int n, int J, int P,
+                                        int N) {
+  std::vector<C> f(ft, ft + nf), qc(q, q + n), vc(v, v + n), out(3 * N);
+  g_ops = 0;
+  run_read<C>(it, f.data(), qc.data(), vc.data(), n, J, P, N, out.data());
+  return g_ops;
+}
+"""
+
 class HostLaneContact:
     """K1 and K1T's per-tile routines (``csrc/lane_contact.cu``) on the
     CPU, for the scene of ``op`` (a ``PairWrenches``): ``forward(*args)``
@@ -508,6 +567,51 @@ class HostLaneContact:
         self.op.forward_with(args, launch, torch.float64)
         self.op.adjoint_with(args, cots, need, launch, torch.float64)
         return tuple(counts)
+
+
+class HostTactileRead:
+    """The tactile read kernel's prologue and per-row routine
+    (``csrc/dense_contact.cu``) on the CPU, on one thread in the kernel's
+    order: ``field(struct, model, q, v)`` gives the (Mtot, 3) sensor-frame
+    field in float64 from the plan the wrapper packs
+    (``dense_contact.ReadPlan``); ``count(...)`` the operations one read
+    needs (the prologue once), for the read's bound."""
+
+    _built = None          # (directory, library): one build per process
+
+    def __init__(self):
+        if HostTactileRead._built is None:
+            workdir = tempfile.TemporaryDirectory()
+            lib = build(workdir.name, _TR_SRC)
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.host_tactile_read.argtypes = [p, p, p, p, i, i, i, i, p]
+            lib.host_tactile_read.restype = None
+            lib.count_tactile_read.argtypes = [p, p, i, p, p, i, i, i, i]
+            lib.count_tactile_read.restype = ctypes.c_longlong
+            HostTactileRead._built = (workdir, lib)
+        self.lib = HostTactileRead._built[1]
+
+    @staticmethod
+    def _inputs(struct, model, q, v):
+        from tactilesimulation_tpu_torch.ops import dense_contact
+        plan = dense_contact.ReadPlan(struct, model.to("cpu", torch.float64))
+        vec = lambda a: torch.as_tensor(np.asarray(a, np.float64)).contiguous()
+        return plan, vec(q), vec(v)
+
+    def field(self, struct, model, q, v) -> torch.Tensor:
+        plan, q, v = self._inputs(struct, model, q, v)
+        out = torch.empty((plan.N, 3), dtype=torch.float64)
+        self.lib.host_tactile_read(
+            plan.ints.data_ptr(), plan.floats.data_ptr(), q.data_ptr(),
+            v.data_ptr(), plan.n, plan.J, plan.P, plan.N, out.data_ptr())
+        return out
+
+    def count(self, struct, model, q, v) -> int:
+        plan, q, v = self._inputs(struct, model, q, v)
+        return int(self.lib.count_tactile_read(
+            plan.ints.data_ptr(), plan.floats.data_ptr(),
+            plan.floats.numel(), q.data_ptr(), v.data_ptr(), plan.n, plan.J,
+            plan.P, plan.N))
 
 
 UNITS = ("Lq0", "Lq1", "Lq2", "Lr0", "Lr1", "Lr2", "R0", "R1", "factor",

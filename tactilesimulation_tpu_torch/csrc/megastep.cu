@@ -109,6 +109,7 @@
 #include <cuda_runtime.h>
 
 #include "contact_point.cuh"
+#include "kinematics.cuh"
 
 namespace {
 
@@ -195,114 +196,6 @@ __device__ Scene<T> load_scene(const int* it, const T* ft) {
   s.params = f; f += 4 * K;
   s.xi = f;
   return s;
-}
-
-// -- quaternion algebra, operands of mixed scalar types ----------------------
-template <class S, class A, class B>
-__device__ __forceinline__ void cross3(const A a[3], const B b[3], S o[3]) {
-  o[0] = a[1] * b[2] - a[2] * b[1];
-  o[1] = a[2] * b[0] - a[0] * b[2];
-  o[2] = a[0] * b[1] - a[1] * b[0];
-}
-
-template <class S, class A, class B>
-__device__ __forceinline__ void qmul(const A a[4], const B b[4], S o[4]) {
-  o[0] = a[0] * b[0] - a[1] * b[1] - a[2] * b[2] - a[3] * b[3];
-  o[1] = a[0] * b[1] + a[1] * b[0] + a[2] * b[3] - a[3] * b[2];
-  o[2] = a[0] * b[2] - a[1] * b[3] + a[2] * b[0] + a[3] * b[1];
-  o[3] = a[0] * b[3] + a[1] * b[2] - a[2] * b[1] + a[3] * b[0];
-}
-
-// quat_rotate: v + w t + qv x t,  t = 2 qv x v
-template <class S, class A, class B>
-__device__ __forceinline__ void qrot(const A q[4], const B v[3], S o[3]) {
-  using P = base_t<S>;
-  S t[3];
-  t[0] = P(2) * (q[2] * v[2] - q[3] * v[1]);
-  t[1] = P(2) * (q[3] * v[0] - q[1] * v[2]);
-  t[2] = P(2) * (q[1] * v[1] - q[2] * v[0]);
-  o[0] = v[0] + q[0] * t[0] + (q[2] * t[2] - q[3] * t[1]);
-  o[1] = v[1] + q[0] * t[1] + (q[3] * t[0] - q[1] * t[2]);
-  o[2] = v[2] + q[0] * t[2] + (q[1] * t[1] - q[2] * t[0]);
-}
-
-// -- kinematics (sim/lanes.fk_joints, fk_bodies) -----------------------------
-template <class S, class T>
-__device__ void fk_joints(const Scene<T>& sc, const S* q, S (*jp)[3],
-                          S (*jq)[4]) {
-  const int n = sc.n;
-  const S zero = cst<S>(T(0));
-#pragma unroll 1
-  for (int j = 0; j < sc.J; ++j) {
-    const int* ti = sc.trans_idx + 3 * j;
-    const int* ri = sc.rot_idx + 3 * j;
-    const int* mf = sc.mflags + 3 * j;
-    const T* bs = sc.basis + 9 * j;   // basis[j][i][k] = bs[3 i + k]
-    S qt[3], r[3];
-    for (int k = 0; k < 3; ++k) {
-      qt[k] = ti[k] < n ? q[ti[k]] : zero;
-      r[k] = ri[k] < n ? q[ri[k]] : zero;
-    }
-    S tl[3];
-    for (int i = 0; i < 3; ++i)
-      tl[i] = qt[0] * bs[3 * i] + qt[1] * bs[3 * i + 1] + qt[2] * bs[3 * i + 2];
-    S ql[4];
-    if (mf[0]) {            // revolute: axis_angle_quat(axis0, r0)
-      const T* ax = sc.jaxis + 3 * j;
-      const S half = T(0.5) * r[0];
-      const S sh = ssin(half);
-      ql[0] = scos(half);
-      for (int i = 0; i < 3; ++i) ql[1 + i] = sh * ax[i];
-    } else if (mf[1]) {     // rotvec_to_quat
-      const S asq = r[0] * r[0] + r[1] * r[1] + r[2] * r[2];
-      const S ang = ssqrt(asq + T(1e-12));
-      const S half = T(0.5) * ang;
-      const bool small = pv(asq) < T(1e-8);
-      const S kk = small ? T(0.5) - asq / T(48) : ssin(half) / ang;
-      ql[0] = small ? T(1) - asq / T(8) : scos(half);
-      for (int i = 0; i < 3; ++i) ql[1 + i] = kk * r[i];
-    } else if (mf[2]) {     // euler_xyz_to_quat
-      const S hx = T(0.5) * r[0], hy = T(0.5) * r[1], hz = T(0.5) * r[2];
-      const S cx = scos(hx), cy = scos(hy), cz = scos(hz);
-      const S sx = ssin(hx), sy = ssin(hy), sz = ssin(hz);
-      ql[0] = cx * cy * cz - sx * sy * sz;
-      ql[1] = sx * cy * cz + cx * sy * sz;
-      ql[2] = cx * sy * cz - sx * cy * sz;
-      ql[3] = cx * cy * sz + sx * sy * cz;
-    } else {
-      ql[0] = cst<S>(T(1));
-      ql[1] = ql[2] = ql[3] = zero;
-    }
-    const T* jpc = sc.jpos + 3 * j;
-    const T* jqc = sc.jquat + 4 * j;
-    S rt[3], pl[3], qlo[4];
-    qrot(jqc, tl, rt);
-    for (int i = 0; i < 3; ++i) pl[i] = jpc[i] + rt[i];
-    qmul(jqc, ql, qlo);
-    const int par = sc.jparent[j];
-    if (par < 0) {
-      for (int i = 0; i < 3; ++i) jp[j][i] = pl[i];
-      for (int i = 0; i < 4; ++i) jq[j][i] = qlo[i];
-    } else {
-      S rp[3];
-      qrot(jq[par], pl, rp);
-      for (int i = 0; i < 3; ++i) jp[j][i] = jp[par][i] + rp[i];
-      qmul(jq[par], qlo, jq[j]);
-    }
-  }
-}
-
-template <class S, class T>
-__device__ void fk_bodies(const Scene<T>& sc, S (*jp)[3],
-                          S (*jq)[4], S (*bp)[3], S (*bq)[4]) {
-#pragma unroll 1
-  for (int b = 0; b < sc.NB; ++b) {
-    const int j = sc.body_joint[b];
-    S r[3];
-    qrot(jq[j], sc.bpos + 3 * b, r);
-    for (int i = 0; i < 3; ++i) bp[b][i] = jp[j][i] + r[i];
-    qmul(jq[j], sc.bquat + 4 * b, bq[b]);
-  }
 }
 
 // -- dynamics (sim/lanes.lagrangian, el_terms, momentum) ---------------------

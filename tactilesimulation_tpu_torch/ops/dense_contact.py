@@ -1,4 +1,4 @@
-"""K4: dense point-vs-primitive penalty contact (the tactile query's kernel).
+"""K4: dense point-vs-primitive penalty contact, and the tactile read.
 
 Port of ``tactilesimulation_tpu/ops/dense_contact.py``: the force on N world
 points from ONE primitive body (sphere, cuboid, cylinder) or the ground
@@ -9,20 +9,27 @@ relative velocity (``v + w x d`` for the primitive), the normal force
 kernel (cuboid: the normal averages the tied axes, sign(0) = 0; cylinder:
 the radial face wins a tie).
 
-Routes:
-- CUDA tensors go to the hand-written kernel ``csrc/dense_contact.cu``
-  (nvcc at first use, ctypes; float32 and float64 instances); what it does
-  not take (dtype, shape, layout, device) raises, and so does a failed
-  build or launch;
-- CPU tensors go to the plain PyTorch version ``dense_point_contact_ref``.
+Two entries of the hand-written kernel ``csrc/dense_contact.cu`` (nvcc at
+first use, ctypes; float32 and float64 instances):
 
-``launches`` counts kernel launches and nothing else.
+- ``dense_point_contact``, the JAX package's public function: CUDA tensors
+  go to the points entry, CPU tensors to the plain PyTorch version
+  ``dense_point_contact_ref``;
+- ``tactile_read(plan, q, v)``: the whole sensor-frame tactile field of a
+  scene in one launch, from a ``ReadPlan`` (the scene's tables on the
+  card); ``ops/tactile_query.tactile_field`` takes it for CUDA tensors and
+  keeps the plain version for CPU ones.
+
+What a kernel does not take (dtype, shape, layout, device) raises, and so
+does a failed build or launch; nothing falls back. ``launches`` counts the
+points entry's launches and ``read_launches`` the read's, and nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..model.schema import GEOM_CUBOID, GEOM_CYLINDER, GEOM_SPHERE
@@ -33,11 +40,13 @@ N_SCALARS = 32        # packed primitive scalars (layout in the .cu file)
 GTYPES = (GROUND, GEOM_CUBOID, GEOM_CYLINDER, GEOM_SPHERE)
 
 launches = 0
+read_launches = 0
 
 
 def reset_counts():
-    global launches
+    global launches, read_launches
     launches = 0
+    read_launches = 0
 
 
 def supported(gtype, x) -> bool:
@@ -196,6 +205,132 @@ def _run_kernel(gtype, x, xdot, scal):
     return f
 
 
+# ---------------------------------------------------------------------------
+# the tactile read: one launch for the whole field
+# ---------------------------------------------------------------------------
+
+PAIR_INTS, PAIR_FLOATS = 4, 14
+# the model leaves a plan packs; an edit of any of them (a new tensor or an
+# in-place change) makes the plan stale
+READ_LEAVES = ("joint_pos", "joint_quat", "joint_axis0", "body_pos",
+               "body_quat", "body_size", "tac_pos", "tac_normal",
+               "tac_axis0", "tac_axis1", "tac_kn", "tac_kt", "tac_mu",
+               "tac_damping", "ground_pos", "ground_normal")
+
+
+class ReadPlan:
+    """A scene's tables for the read kernel, on the model's device and in
+    its dtype (layout in ``csrc/dense_contact.cu``, ``load_read_scene``):
+    the FK tables with each joint's depth in the tree, each tactile pair's
+    rows, primitive type, body joint and constants (body pose in its joint,
+    size, the pair's parameter row), and the markers as structure of
+    arrays. The kernel sizes its shared memory from the plan's counts.
+    ``fresh()`` is False once a model leaf it packed was replaced or
+    changed in place."""
+
+    def __init__(self, struct, model):
+        n, J, N = struct.ndof_q, struct.njoints, len(struct.tac_joint)
+        pairs = struct.tactile_pairs
+        P = len(pairs)
+        if min(n, J, P, N) < 1:
+            raise ValueError(f"tactile read: {n} coordinates, {J} joints, "
+                             f"{P} pairs, {N} rows; the kernel takes at "
+                             "least 1 of each")
+        parents = np.asarray(struct.joint_parents, np.int64)
+        if np.any(parents >= np.arange(J)):
+            raise ValueError("tactile read: a joint precedes its parent")
+        depth = np.zeros(J, np.int64)
+        for j, par in enumerate(parents):
+            depth[j] = 0 if par < 0 else depth[par] + 1
+        self.struct, self.model = struct, model
+        self.n, self.J, self.P, self.N = n, J, P, N
+        self.device, self.dtype = model.device, model.dtype
+        f64 = lambda t: np.asarray(t.detach().cpu().numpy(), np.float64)
+        tb = struct.fk_tables
+        mflags = np.concatenate([np.asarray(tb[k], np.int64).reshape(J, 1)
+                                 for k in ("m_rev", "m_exp", "m_eul")],
+                                axis=1)
+        prow, pint = [], []
+        for pr in pairs:
+            if pr.general_is_sphere:
+                raise ValueError("tactile read: an analytic sphere pair")
+            b = pr.primitive_body
+            k = pr.param_index
+            params = [f64(getattr(model, f"tac_{x}"))[k]
+                      for x in ("kn", "kt", "mu", "damping")]
+            if b < 0:
+                pint.append([pr.point_start, pr.point_count, GROUND, 0])
+                prow.append(np.concatenate([np.zeros(10), params]))
+            else:
+                gt = int(struct.body_gtype[b])
+                if gt not in GTYPES:
+                    raise ValueError(f"tactile read: primitive type {gt}")
+                pint.append([pr.point_start, pr.point_count, gt,
+                             struct.body_joint[b]])
+                prow.append(np.concatenate([
+                    f64(model.body_pos)[b], f64(model.body_quat)[b],
+                    f64(model.body_size)[b], params]))
+        ints = np.concatenate([
+            parents, depth, np.asarray(tb["trans_idx"], np.int64).ravel(),
+            np.asarray(tb["rot_idx"], np.int64).ravel(), mflags.ravel(),
+            np.asarray(pint, np.int64).ravel(),
+            np.asarray(struct.tac_joint, np.int64)])
+        floats = np.concatenate([
+            f64(model.ground_pos), f64(model.ground_normal),
+            f64(model.joint_pos).ravel(), f64(model.joint_quat).ravel(),
+            f64(model.joint_axis0).ravel(),
+            np.asarray(tb["basis"], np.float64).ravel(),
+            np.asarray(prow).ravel()]
+            + [f64(getattr(model, k)).T.ravel()
+               for k in ("tac_pos", "tac_normal", "tac_axis0",
+                         "tac_axis1")])
+        self.ints = torch.as_tensor(ints.astype(np.int32),
+                                    device=self.device)
+        self.floats = torch.as_tensor(floats, dtype=self.dtype,
+                                      device=self.device)
+        self._stamp = [(getattr(model, k), getattr(model, k)._version)
+                       for k in READ_LEAVES]
+
+    def fresh(self) -> bool:
+        return all(getattr(self.model, k) is t and t._version == ver
+                   for k, (t, ver) in zip(READ_LEAVES, self._stamp))
+
+
+def tactile_read(plan, q, v):
+    """(N, 3) sensor-frame [shear0, shear1, normal] field of ``plan``'s
+    scene at (q, v): one launch of the read kernel on the current stream.
+    Raises on what it does not take (q, v off the plan's device or dtype,
+    not contiguous (n,) vectors) without launching."""
+    global read_launches
+    for name, a in (("q", q), ("v", v)):
+        if a.device != plan.device:
+            raise ValueError(f"tactile read: {name} on {a.device}, the plan "
+                             f"on {plan.device}")
+        if a.dtype != plan.dtype:
+            raise TypeError(f"tactile read: {name} is {a.dtype}, the plan "
+                            f"{plan.dtype}")
+        if a.shape != (plan.n,) or not a.is_contiguous():
+            raise ValueError(f"tactile read: {name} has shape "
+                             f"{tuple(a.shape)}, expected a contiguous "
+                             f"({plan.n},)")
+    out = torch.empty((plan.N, 3), dtype=q.dtype, device=q.device)
+    lib = _library()
+    fn = (lib.tactile_read_launch_f32 if q.dtype == torch.float32
+          else lib.tactile_read_launch_f64)
+    err = fn(plan.ints.data_ptr(), plan.floats.data_ptr(), q.data_ptr(),
+             v.data_ptr(), plan.n, plan.J, plan.P, plan.N, out.data_ptr(),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        smem = lib.tactile_read_shared_bytes(plan.n, plan.J, plan.P,
+                                             int(q.dtype == torch.float64))
+        raise RuntimeError(f"tactile read launch failed: CUDA error {err} "
+                           f"({plan.n} coordinates, {plan.J} joints and "
+                           f"{plan.P} pairs ask for {smem} B of shared "
+                           "memory a block)")
+    read_launches += 1
+    return out
+
+
 def _library():
     from . import _build
     lib = _build.load("dense_contact")
@@ -204,8 +339,16 @@ def _library():
         for fn in (lib.dense_contact_launch_f32, lib.dense_contact_launch_f64):
             fn.argtypes = [i, p, p, p, i, p, p]
             fn.restype = ctypes.c_int
+        for fn in (lib.tactile_read_launch_f32, lib.tactile_read_launch_f64):
+            fn.argtypes = [p, p, p, p, i, i, i, i, p, p]
+            fn.restype = ctypes.c_int
         lib.dense_contact_scalars.restype = ctypes.c_int
-        if lib.dense_contact_scalars() != N_SCALARS:
-            raise RuntimeError("K4: scalar layout of the library differs")
+        lib.tactile_read_shared_bytes.argtypes = [i, i, i, i]
+        lib.tactile_read_shared_bytes.restype = ctypes.c_longlong
+        lay = (ctypes.c_int * 2)()
+        lib.tactile_read_layout(lay)
+        if lib.dense_contact_scalars() != N_SCALARS or tuple(lay) != (
+                PAIR_INTS, PAIR_FLOATS):
+            raise RuntimeError("K4: the library's table layout differs")
         lib._typed = True
     return lib

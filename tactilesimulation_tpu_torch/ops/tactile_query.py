@@ -1,13 +1,24 @@
-"""The dense tactile field query on the contact kernel K4.
+"""The dense tactile field query: the tactile read kernel on the card.
 
 Port of ``tactilesimulation_tpu/ops/tactile_query.py``. The query needs the
 marker forces only, not the generalized contact force, so it skips the
-wrench and J^T f machinery of the step: FK and the joints' world twists
-(``dynamics.twists``, the JVP of FK written as plain ops) give the markers'
-world positions and velocities and the bodies' poses and velocities; each
-tactile pair is one ``dense_contact.dense_point_contact`` call (K4 on the
-card, its plain version on the CPU); the forces are then projected onto
-the per-marker sensor axes.
+wrench and J^T f machinery of the step. It gives what
+``dynamics.tactile_field`` gives: each marker row's forces summed over the
+tactile pairs that hold it, in pair order, projected onto the row's
+sensor axes. (The JAX query writes each pair's forces into its rows, so
+there the last pair wins where two pairs share rows, as on StableGrasp's
+pads; the port sums, as the step does.)
+
+Routes:
+- CUDA tensors: ``dense_contact.tactile_read``, the whole read in one
+  launch, from a ``ReadPlan`` made once per (struct, model) and made again
+  when a model leaf it packed changes;
+- CPU tensors: the plain PyTorch version ``tactile_field_ref``: FK and the
+  joints' world twists (``dynamics.twists``, the JVP of FK written as plain
+  ops) give the markers' world positions and velocities and the bodies'
+  poses and velocities; each tactile pair is one
+  ``dense_contact.dense_point_contact_ref``; the forces are summed per row
+  and projected onto the sensor axes. It is also the card's comparison.
 
 Used by ``Simulator.tactile`` (the facade's ``get_tactile_force_vector``)
 and the strided rollout's ``fast_tactile`` query. Forward only.
@@ -20,7 +31,10 @@ import torch
 from ..model.schema import GEOM_CUBOID, GEOM_CYLINDER, GEOM_SPHERE
 from ..sim import dynamics, kinematics, spatial
 from ..sim.contact import GROUND
-from .dense_contact import dense_point_contact
+from . import dense_contact
+
+_PLANS = {}
+_MAX_PLANS = 16
 
 
 def supported(struct) -> bool:
@@ -35,9 +49,35 @@ def supported(struct) -> bool:
     return len(struct.tactile_pairs) > 0
 
 
+def read_plan(struct, model):
+    """The read kernel's ``ReadPlan`` of (struct, model), made again when
+    one of the model leaves it packed was replaced or edited in place."""
+    key = (id(struct), id(model))
+    plan = _PLANS.get(key)
+    if (plan is None or plan.struct is not struct or plan.model is not model
+            or not plan.fresh()):
+        plan = dense_contact.ReadPlan(struct, model)
+        _PLANS.pop(key, None)
+        if len(_PLANS) >= _MAX_PLANS:
+            _PLANS.pop(next(iter(_PLANS)))
+        _PLANS[key] = plan
+    return plan
+
+
 def tactile_field(struct, model, q, v):
     """(Mtot, 3) sensor-frame [shear0, shear1, normal] marker forces; the
     query's counterpart of ``dynamics.tactile_field``."""
+    if len(struct.tac_joint) == 0:
+        return q.new_zeros((0, 3))
+    if q.is_cuda:
+        return dense_contact.tactile_read(read_plan(struct, model), q, v)
+    if q.device.type != "cpu":
+        raise ValueError(f"tactile_field: no route for {q.device}")
+    return tactile_field_ref(struct, model, q, v)
+
+
+def tactile_field_ref(struct, model, q, v):
+    """The plain PyTorch version of the read, on any device."""
     ntac = len(struct.tac_joint)
     if ntac == 0:
         return q.new_zeros((0, 3))
@@ -54,7 +94,7 @@ def tactile_field(struct, model, q, v):
         bv = spatial.cross(bw, bp) + be[bj]
         bR = spatial.quat_to_mat(bquat)
         ground = (model.ground_pos, model.ground_normal)
-        forces = []
+        tac_force = q.new_zeros((ntac, 3))
         for pair in struct.tactile_pairs:
             sl = slice(pair.point_start, pair.point_start + pair.point_count)
             k = pair.param_index
@@ -69,15 +109,11 @@ def tactile_field(struct, model, q, v):
                 gtype = struct.body_gtype[b]
                 pose, vel, size = (bp[b], bR[b]), (bv[b], bw[b]), \
                     model.body_size[b]
-            forces.append((sl, dense_point_contact(
+            # the pairs that share a row add, in pair order (the step's
+            # index_add in dynamics.contact_terms)
+            tac_force[sl] += dense_contact.dense_point_contact_ref(
                 gtype, x[sl].contiguous(), xd[sl].contiguous(), pose, vel,
-                size, params, ground)))
-        if len(forces) == 1 and forces[0][0] == slice(0, ntac):
-            tac_force = forces[0][1]
-        else:
-            tac_force = q.new_zeros((ntac, 3))
-            for sl, f in forces:
-                tac_force[sl] = f
+                size, params, ground)
 
         # project onto the per-marker sensor axes (owner joint frame axes)
         n_w = spatial.quat_rotate(tq, model.tac_normal)

@@ -79,8 +79,9 @@ class Simulator:
         return dynamics.tactile_field(self.struct, model, q, qdot)
 
     def _use_fast_tactile(self, model: Optional[Model] = None) -> bool:
-        """The K4 query: the model lives on the card and every tactile pair
-        is point-vs-primitive (the counterpart of JAX's "backend is TPU")."""
+        """The tactile read kernel's query: the model lives on the card and
+        every tactile pair is point-vs-primitive (the counterpart of JAX's
+        "backend is TPU")."""
         model = self.model if model is None else model
         return model.h.is_cuda and tactile_query.supported(self.struct)
 
@@ -109,10 +110,10 @@ class Simulator:
         each control is held for ``stride`` sim steps (frame_skip with
         save_last_frame_var_only).
 
-        ``fast_tactile`` queries the field through K4 where the model lives
-        on the card (``_use_fast_tactile``). ``remat`` is accepted for the
-        JAX signature; a forward-only rollout keeps no graph to
-        rematerialise."""
+        ``fast_tactile`` queries the field through the tactile read kernel
+        where the model lives on the card (``_use_fast_tactile``).
+        ``remat`` is accepted for the JAX signature; a forward-only rollout
+        keeps no graph to rematerialise."""
         del remat
         struct, step = self.struct, self.step
 
@@ -124,7 +125,7 @@ class Simulator:
                 for _ in range(stride):
                     state = step(model, state, u)
                 if fast:
-                            tac = tactile_query.tactile_field(
+                    tac = tactile_query.tactile_field(
                         struct, model, state.q, state.qdot).reshape(-1)
                 else:
                     with torch.no_grad():

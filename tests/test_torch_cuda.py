@@ -12,8 +12,9 @@ import pytest
 import torch
 
 from chip_smoke import (ACTOR_CFG, K1T_TOL, K1_SCENES, K23_F32_VS_F64,
-                        K23_F64_TOL, K4_TOL, Smoke, contact_state,
-                        pair_wrench_inputs)
+                        K23_F64_TOL, K4_TOL, READ_SCENES, READ_TOL, Smoke,
+                        block_chain, contact_state, pair_wrench_inputs,
+                        read_case)
 from tactilesimulation_tpu_torch.envs import tactile_push_lanes
 from tactilesimulation_tpu_torch.model import task_scenes
 from tactilesimulation_tpu_torch.models.nets import DiagGaussianActor
@@ -393,10 +394,11 @@ def test_rolling_query_runs_through_k4(card):
     v = torch.as_tensor(v, dtype=torch.float32, device=card)
     dense_contact.reset_counts()
     got = tactile_query.tactile_field(struct, model, q, v)
-    assert dense_contact.launches == 1
+    assert (dense_contact.read_launches, dense_contact.launches) == (1, 0)
     # the plain differentiable path in float32: marker velocities from the
-    # joint twists there, v + w x d inside K4; the two differ by float
-    # round-off (6e-6 of scale measured at 40,000 markers)
+    # joint twists there, from the FK's dual part in the read kernel; the
+    # two differ by float round-off (6e-6 of scale measured at 40,000
+    # markers)
     want = dense_single.tactile_field_points_major(struct, model, q, v)
     scale = float(want.abs().max())
     assert scale > 0
@@ -406,5 +408,58 @@ def test_rolling_query_runs_through_k4(card):
     us = torch.tensor([[0.1, 0.0, 0.2]] * 2, device=card)
     dense_contact.reset_counts()
     state, qs, _, tacs = rollout(model, sim.init_state(q=q, qdot=v), us)
-    assert dense_contact.launches == 2
+    assert (dense_contact.read_launches, dense_contact.launches) == (2, 0)
     assert bool(torch.isfinite(qs).all()) and bool(torch.isfinite(tacs).all())
+
+
+# the tactile read against its plain version (tolerances and their reasons:
+# chip_smoke.py READ_TOL, READ_ROUNDING_ROWS)
+@pytest.mark.parametrize("name", ("rolling_ball_200",) + READ_SCENES)
+def test_tactile_read_matches_plain_version(card, name):
+    # float64 within 1e-12 x scale, float32 within 1e-5 x scale but on the
+    # rows where float32 rounding decides a jump (at most 1 %, held to
+    # float64 there); one launch a read; two launches bit-equal
+    Smoke().read_check(name, card)
+
+
+def test_tactile_read_raises_without_launching(card):
+    struct, model, q, v = read_case("tactile_push", torch.float32, card)
+    plan = tactile_query.read_plan(struct, model)
+    dense_contact.reset_counts()
+    with pytest.raises(ValueError, match="on cpu"):
+        dense_contact.tactile_read(plan, q.cpu(), v)
+    with pytest.raises(TypeError):
+        dense_contact.tactile_read(plan, q.double(), v.double())
+    with pytest.raises(ValueError, match="shape"):
+        dense_contact.tactile_read(plan, q[:-1], v[:-1])
+    with pytest.raises(ValueError, match="shape"):
+        dense_contact.tactile_read(plan, q, torch.stack([v, v], 1)[:, 0])
+    assert dense_contact.read_launches == 0
+    out = dense_contact.tactile_read(plan, q, v)
+    assert dense_contact.read_launches == 1 and out.shape == (plan.N, 3)
+
+
+def test_tactile_read_raises_past_shared_memory(card):
+    # the read's tables live in a block's shared memory, sized from the
+    # plan: 900 pairs in float64 ask for more than a block may hold
+    from tactilesimulation_tpu_torch.model import scenes
+    struct, model = block_chain(scenes, blocks=900)
+    model = model.to(card, torch.float64)
+    plan = tactile_query.read_plan(struct, model)
+    q = torch.zeros(plan.n, dtype=torch.float64, device=card)
+    dense_contact.reset_counts()
+    with pytest.raises(RuntimeError, match="shared memory"):
+        dense_contact.tactile_read(plan, q, q)
+    assert dense_contact.read_launches == 0
+
+
+def test_tactile_read_sees_model_edits(card):
+    struct, model, q, v = read_case("dclaw", torch.float64, card)
+    before = tactile_query.tactile_field(struct, model, q, v)
+    model.body_size[struct.body_index("cap"), 0] += 0.002    # in place
+    model.tac_kn.mul_(2.0)
+    got = tactile_query.tactile_field(struct, model, q, v)
+    want = tactile_query.tactile_field_ref(struct, model, q, v)
+    scale = float(want.abs().max())
+    assert not torch.equal(got, before)
+    assert float((got - want).abs().max()) <= READ_TOL[torch.float64] * scale
