@@ -30,8 +30,9 @@ seconds):
               contact states: float64 at B = 64; float32 with K2 at
               B = 1024 and K3 at B = 128, the kernel and the f32 plain
               version each against the f64 plain version, and on resting
-              contact directly against the f32 plain version. Kernel and
-              plain times at the main path's shapes, bounds from the
+              contact directly against the f32 plain version. Kernel
+              (back to back and device_ms) and plain times at the main
+              path's shapes, bounds from the
               operations counted at the timed run's inputs; K2/K3 also at
               B = 16 (the GD width), and each instance's registers, stack,
               shared memory and resident blocks per SM. K4
@@ -86,6 +87,22 @@ seconds):
               float64 (the read's double instance) against the CPU in
               float64 (the plain path); the card in float32 held to the
               CPU float32 run's distance from float64.
+ 8. adjoint - slice 7, the single-instance implicit-function adjoint: (a)
+              RollingBall 200 x 200, float32, the CLI's --grad loss
+              (``rolling_ball_speed.bptt_loss``: the dense field at every
+              chunk end and the final ball position) from the pad pressed
+              onto the ball, ADJ_STEPS steps of BPTT at stride 5 (cut to
+              ADJ_CUT when the probe predicts past ADJ_BUDGET_S): forward
+              and backward ms per step, steps/s, peak memory with remat on
+              and off, |g| (finite and non-zero); eager aten ops and the
+              device's busy share over one BPTT step (a one-step dense
+              rollout with its field); no read kernel under grad;
+              (b) ``make_rollout_dense``'s VJP on RollingBall 8 x 8
+              pressed, 3 steps, seeded cotangents on q, vars and the field:
+              the card in float64 within ADJ_F64_TOL of the CPU's, in
+              float32 held to the CPU float32 run's distance from float64;
+              (c) the facade's ``backward()`` and ``backward_steps(2)``
+              with every flag on, card against CPU in float64.
 
 The line before the card's line is the kernel table as JSON; the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -94,6 +111,7 @@ is {"ok": true, "device": {...}}. Imports nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import math
 import os
@@ -205,6 +223,16 @@ ROLL_F64_TOL = {"q": 1e-9, "qdot": 1e-9, "tactile": 1e-8}
 # for K2/K3 (K23_F32_VS_F64), the card's float32 run is held to the CPU's
 # float32 run's distance from float64: within 1.25x of it plus 1e-5.
 ROLL_F32_VS_F64 = (1.25, 1e-5)
+# the adjoint phase: BPTT steps of the --grad protocol on RollingBall
+# 200 x 200 (stride ROLL_STRIDE), cut to ADJ_CUT when the probe predicts
+# the phase's BPTT runs past ADJ_BUDGET_S
+ADJ_STEPS, ADJ_CUT = 10, 5
+ADJ_BUDGET_S = 90.0
+# card against CPU, float64, for the single-instance adjoint (the rollout's
+# VJP and the facade's backward): the same algorithm to round-off, each
+# gradient's max abs error over its CPU scale; float32 is held to the CPU
+# float32 run's distance from float64 (ROLL_F32_VS_F64)
+ADJ_F64_TOL = 1e-9
 MEGA = "tactilesimulation_tpu_torch/csrc/megastep.cu"
 LANE = "tactilesimulation_tpu_torch/csrc/lane_contact.cu"
 DENSE = "tactilesimulation_tpu_torch/csrc/dense_contact.cu"
@@ -498,7 +526,6 @@ def read_state(name, struct, model, seed=0):
 def read_case(name, dtype=torch.float64, dev="cpu", seed=0):
     """(struct, model, q, v) of read_scene(name) on ``dev`` in ``dtype``
     at read_state's pressed state, through the port's modules."""
-    import dataclasses
     from tactilesimulation_tpu_torch.model import scenes, task_scenes
     struct, model = read_scene(name, task_scenes, scenes)
     q, v, edits = read_state(name, struct, model, seed)
@@ -506,6 +533,84 @@ def read_case(name, dtype=torch.float64, dev="cpu", seed=0):
         k: torch.as_tensor(a, dtype=model.dtype) for k, a in edits.items()})
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev).contiguous()
     return struct, model.to(dev, dtype), t(q), t(v)
+
+
+def _flat_model(model):
+    from tactilesimulation_tpu_torch.sim.types import Model
+    return torch.cat([getattr(model, f.name).detach().reshape(-1).double()
+                      .cpu() for f in dataclasses.fields(Model)])
+
+
+def dense_vjp(struct, model64, dev, dtype, q, v, us, seed=5):
+    """``Simulator.make_rollout_dense``'s VJP from (q, v) under ``us`` with
+    seeded cotangents on q, vars and the tactile field: {name: float64 CPU
+    tensor} for q0, qdot0, u and the Model's cotangent (leaves flattened in
+    field order)."""
+    from tactilesimulation_tpu_torch.sim import simulation
+    from tactilesimulation_tpu_torch.sim.types import Model
+    model = model64.to(dev, dtype)
+    sim = simulation.Simulator(struct, model)
+    T = len(us)
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64),
+                                  dtype=dtype, device=dev)
+    cots = [t(rng.randn(T, w) * scale) for w, scale in (
+        (struct.ndof_q, 1.0), (struct.ndof_var, 1.0),
+        (struct.ndof_tactile, 1e2))]
+    q0, v0, u = (t(a).requires_grad_() for a in (q, v, us))
+    m = Model(**{f.name: getattr(model, f.name).detach().clone()
+                 .requires_grad_() for f in dataclasses.fields(Model)})
+    state0 = sim.init_state(m, q=q, qdot=v).replace(q=q0, qdot=v0)
+    _, qs, vars_, tacs = sim.make_rollout_dense()(m, state0, u)
+    live = [(o, c) for o, c in zip((qs, vars_, tacs), cots)
+            if o.requires_grad]
+    wrt = [q0, v0, u] + [getattr(m, f.name) for f in dataclasses.fields(Model)]
+    g = torch.autograd.grad([o for o, _ in live], wrt, [c for _, c in live],
+                            materialize_grads=True)
+    out = {k: y.detach().double().cpu() for k, y in
+           zip(("q0", "qdot0", "u"), g[:3])}
+    out["model"] = _flat_model(Model(*g[3:]))
+    return out
+
+
+def facade_backward(struct, model64, dev, dtype, q, v, seed=6):
+    """The facade on RollingBall: ``reset(backward_flag=True)`` at (q, v),
+    one step and then two in one call, ``backward()`` and
+    ``backward_steps(2)`` with seeded q and tactile cotangents and every
+    flag on: {name: float64 CPU tensor}."""
+    from tactilesimulation_tpu_torch.sim import simulation
+    fac = simulation.Simulation((struct, model64), device=dev, dtype=dtype)
+    fac.set_state_init(q, v)
+    fac.reset(backward_flag=True)
+    fac.set_u([0.1, 0.0, 0.2])
+    fac.forward(1)
+    fac.set_u([0.0, 0.1, 0.25])
+    fac.forward(2)
+    rng = np.random.RandomState(seed)
+    cq = rng.randn(3, struct.ndof_q)
+    ctac = 1e2 * rng.randn(3, struct.ndof_tactile)
+    bi = fac.backward_info
+    bi.set_flags(flag_q0=True, flag_qdot0=True, flag_p=True, flag_u=True)
+    bi.df_dvar = np.zeros(0)
+    out = {}
+    for name, T in (("backward", 3), ("backward_steps(2)", 2)):
+        bi.df_dq, bi.df_dtactile = (cq[-T:].reshape(-1),
+                                    ctac[-T:].reshape(-1))
+        if T == 3:
+            fac.backward()
+        else:
+            fac.backward_steps(T)
+        r = fac.backward_results
+        for k in ("df_dq0", "df_dqdot0", "df_du"):
+            out[f"{name} {k}"] = torch.as_tensor(getattr(r, k)).double()
+        out[f"{name} df_dp"] = _flat_model(r.df_dp)
+    return out
+
+
+def max_rel(got, want):
+    """max |got - want| over max |want|, each a {name: tensor}."""
+    return {k: float((got[k] - w).abs().max())
+            / max(float(w.abs().max()), 1e-300) for k, w in want.items()}
 
 
 class AtenCount:
@@ -960,6 +1065,7 @@ class Smoke:
         ref = ops[torch.float64].fwd_ref(*x64[:3])
         k2_err = three_way(f"K2 B={B_MAIN} (q, qdot, vs)", got, plain, ref)
         k2_ms = cuda_ms(lambda: op.run_fwd(q, v, u), 20, warmup=2)
+        k2_dev = device_ms(lambda: op.run_fwd(q, v, u), 20, warmup=2)
         Bb = 128
         y64 = [a[..., :Bb].contiguous() for a in x64[:3] + [ref[2]] + x64[3:]]
         y32 = f32(y64)
@@ -968,6 +1074,8 @@ class Smoke:
                            ops[torch.float64].bwd_ref(*y64))
         vs32 = ref[2].float().contiguous()
         k3_ms = cuda_ms(lambda: op.run_bwd(q, v, u, vs32, *g), 20, warmup=2)
+        k3_dev = device_ms(lambda: op.run_bwd(q, v, u, vs32, *g), 20,
+                           warmup=2)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         op.bwd_ref(q, v, u, vs32, *g)
@@ -1003,12 +1111,12 @@ class Smoke:
         k2_bytes = tables + 4 * B_MAIN * (2 * n + nu + 2 * n + K * n + 1)
         k3_bytes = tables + 4 * B_MAIN * (2 * n + nu + K * n + 4 * n
                                           + 2 * n + nu)
-        for key, ms, plain_ms, err, bts, nops in (
-                ("K2", k2_ms, k2_plain, k2_err, k2_bytes, k2_ops),
-                ("K3", k3_ms, k3_plain, k3_err, k3_bytes, k3_ops)):
+        for key, ms, dev_ms, plain_ms, err, bts, nops in (
+                ("K2", k2_ms, k2_dev, k2_plain, k2_err, k2_bytes, k2_ops),
+                ("K3", k3_ms, k3_dev, k3_plain, k3_err, k3_bytes, k3_ops)):
             bound, by, t_b, t_o = self._bound(bts, nops)
-            print(f"  {key} TactilePush f32 B={B_MAIN}: kernel {ms:.3f} ms, "
-                  f"plain {plain_ms:.1f} ms; moves {bts} B ({t_b:.5f} ms), "
+            print(f"  {key} TactilePush f32 B={B_MAIN}: kernel {ms:.3f} ms "
+                  f"(device {dev_ms:.3f} ms), plain {plain_ms:.1f} ms; moves {bts} B ({t_b:.5f} ms), "
                   f"{nops:.4e} op ({t_o:.4f} ms); bound {bound:.4f} ms by "
                   f"{by}; {100 * bound / ms:.2f} % of it [{self.card}]")
             self.kernel_rows.setdefault(key, {}).update(
@@ -1811,6 +1919,148 @@ class Smoke:
             if not e_card <= mult * e_cpu + floor:
                 raise AssertionError(f"card float32 vs CPU: {name}")
 
+    # 8 -------------------------------------------------------------------
+    def adjoint(self, dev):
+        """Slice 7: the single-instance implicit-function adjoint. (a) BPTT
+        on RollingBall 200 x 200, float32, by the CLI's --grad protocol;
+        (b) the dense rollout's VJP and (c) the facade's backward, card
+        against CPU on RollingBall 8 x 8 pressed."""
+        from tactilesimulation_tpu_torch.examples import rolling_ball_speed
+        from tactilesimulation_tpu_torch.model import task_scenes
+        from tactilesimulation_tpu_torch.ops import dense_contact
+        from tactilesimulation_tpu_torch.sim import simulation
+        struct, model64 = task_scenes.rolling_ball(resolution=ROLL_RES)
+        model = model64.to(dev, torch.float32)
+        sim = simulation.Simulator(struct, model)
+        # the CLI's loss and stride; from the pressed state, since from the
+        # initial state the pad reaches the ball only at step 75 and the
+        # gradient of the first steps is zero
+        qp, vp = self.pressed_ball(model64.q_init.numpy())
+        state0 = sim.init_state(q=qp, qdot=vp)
+
+        def bptt(steps, remat=True):
+            loss = rolling_ball_speed.bptt_loss(sim, model, state0,
+                                                remat=remat)
+            us = torch.as_tensor(rolling_ball_speed.control_chunks(
+                steps, struct.ndof_u), dtype=torch.float32,
+                device=dev).requires_grad_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            value = loss(us)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (g,) = torch.autograd.grad(value, us)
+            torch.cuda.synchronize()
+            return g, (t1 - t0) / steps, (time.perf_counter() - t1) / steps
+
+        # probe: one chunk, which predicts the phase's BPTT runs (the main
+        # run twice, remat on and off, and three one-step runs)
+        _, f_ms, b_ms = bptt(ROLL_STRIDE)
+        steps = ADJ_STEPS
+        predicted = (f_ms + b_ms) * (2 * ADJ_STEPS + 3)
+        print(f"  probe: {ROLL_STRIDE} steps, forward {f_ms * 1e3:.1f} + "
+              f"backward {b_ms * 1e3:.1f} ms per step; predicts "
+              f"{predicted:.0f} s of BPTT runs [{self.card}]")
+        if predicted > ADJ_BUDGET_S:
+            steps = ADJ_CUT
+            print(f"  CUT: {ADJ_STEPS} -> {ADJ_CUT} BPTT steps (the "
+                  f"prediction is past {ADJ_BUDGET_S:.0f} s)")
+
+        # (a) the main path, remat on (the CLI's), then off
+        peak, runs = {}, {}
+        for remat in (True, False):
+            torch.cuda.reset_peak_memory_stats(dev)
+            dense_contact.reset_counts()
+            runs[remat] = bptt(steps, remat)
+            peak[remat] = torch.cuda.max_memory_allocated(dev)
+            if dense_contact.read_launches or dense_contact.launches:
+                raise AssertionError("a BPTT run launched the read kernel "
+                                     f"({dense_contact.read_launches}) or "
+                                     f"the points entry "
+                                     f"({dense_contact.launches})")
+        g, f_ms, b_ms = runs[True]
+        gn = float(torch.linalg.norm(g))
+        finite = bool(torch.isfinite(g).all())
+        diff = float((runs[False][0] - g).abs().max()) / max(
+            float(g.abs().max()), 1e-30)
+        print(f"  RollingBall {ROLL_RES}x{ROLL_RES} f32 BPTT, {steps} steps "
+              f"(stride {ROLL_STRIDE}) from the pressed state: forward "
+              f"{f_ms * 1e3:.1f} ms + backward {b_ms * 1e3:.1f} ms per step, "
+              f"{1.0 / (f_ms + b_ms):.3f} steps/s; remat off: forward "
+              f"{runs[False][1] * 1e3:.1f} + backward "
+              f"{runs[False][2] * 1e3:.1f} ms per step [{self.card}]")
+        print(f"  peak memory allocated: remat {peak[True] / 2**20:.1f} MiB, "
+              f"no remat {peak[False] / 2**20:.1f} MiB; |g| = {gn:.6g}, "
+              f"finite = {finite}, remat on vs off {diff:.3e} of scale; "
+              "read kernel launches under grad 0")
+        if not finite or gn == 0.0:
+            raise AssertionError(f"BPTT gradient |g| = {gn}, finite = "
+                                 f"{finite}")
+        # one BPTT step for the host's op count and the profiler (a
+        # 5-step chunk's trace takes minutes to read back): a one-step dense
+        # rollout with its field, the loss's terms, forward and backward
+        dense = sim.make_rollout_dense()
+        u1 = torch.as_tensor(rolling_ball_speed.control_chunks(
+            ROLL_STRIDE, struct.ndof_u)[:1], dtype=torch.float32, device=dev)
+
+        def bptt_step():
+            us = u1.clone().requires_grad_()
+            _, qs, _, tacs = dense(model, state0, us)
+            value = torch.sum(tacs ** 2) * 1e3 + torch.sum(qs[-1, 3:6] ** 2)
+            torch.autograd.grad(value, us)
+            torch.cuda.synchronize()
+
+        bptt_step()
+        with AtenCount() as count:
+            bptt_step()
+        print(f"  eager aten ops per BPTT step: {count.n} (one dense step "
+              "with its field, forward and backward)")
+        self.device_share(bptt_step, "one BPTT step", grad=True)
+
+        # (b) the dense rollout's VJP, card against CPU, RollingBall 8x8
+        # pressed, 3 steps (BDF2's first-step fallback, then BDF2)
+        cpu = torch.device("cpu")
+        s8, m8 = task_scenes.rolling_ball(resolution=8)
+        q8, v8 = self.pressed_ball(m8.q_init.numpy())
+        us = [[0.1, 0.0, 0.2], [0.1, -0.05, 0.2], [0.0, 0.1, 0.25]]
+        t0 = time.perf_counter()
+        grads = {(w.type, dt): dense_vjp(s8, m8, w, dt, q8, v8, us)
+                 for w in (dev, cpu) for dt in (torch.float64,
+                                                torch.float32)}
+        print(f"  (4 dense rollout VJPs in {time.perf_counter() - t0:.1f} s)")
+        self._card_vs_cpu(grads, "dense rollout VJP")
+        t0 = time.perf_counter()
+
+        # (c) the facade's backward engine, card against CPU, float64
+        facs = {(w.type, torch.float64): facade_backward(
+            s8, m8, w, torch.float64, q8, v8) for w in (dev, cpu)}
+        print(f"  (2 facades in {time.perf_counter() - t0:.1f} s)")
+        self._card_vs_cpu(facs, "facade")
+
+    def _card_vs_cpu(self, runs, what):
+        """Card float64 within ADJ_F64_TOL of the CPU's; card float32 within
+        ROLL_F32_VS_F64 of the CPU float32 run's distance from float64."""
+        ref = runs[("cpu", torch.float64)]
+        if not all(float(w.abs().max()) > 0 for w in ref.values()):
+            raise AssertionError(f"{what}: a zero gradient on the CPU")
+        e64 = max_rel(runs[("cuda", torch.float64)], ref)
+        for k, err in e64.items():
+            print(f"  {what} card float64 vs cpu float64 {k:28s} rel "
+                  f"{err:.3e} (tol {ADJ_F64_TOL:g})")
+        bad = [k for k, err in e64.items() if not err <= ADJ_F64_TOL]
+        if ("cuda", torch.float32) in runs:
+            mult, floor = ROLL_F32_VS_F64
+            e_card = max_rel(runs[("cuda", torch.float32)], ref)
+            e_cpu = max_rel(runs[("cpu", torch.float32)], ref)
+            for k in ref:
+                print(f"  {what} float32 vs cpu float64 {k:28s} rel: card "
+                      f"{e_card[k]:.3e}, cpu {e_cpu[k]:.3e} (tol {mult:g} x "
+                      f"cpu + {floor:g})")
+                if not e_card[k] <= mult * e_cpu[k] + floor:
+                    bad.append(f"{k} (float32)")
+        if bad:
+            raise AssertionError(f"{what}, card vs CPU: {bad}")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1832,6 +2082,7 @@ def main() -> int:
         s.phase("train", s.train, dev)
         s.phase("cross", s.cross, dev)
         s.phase("rolling", s.rolling, dev)
+        s.phase("adjoint", s.adjoint, dev)
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failed:
         print(f"FAILED phases: {s.failed}")

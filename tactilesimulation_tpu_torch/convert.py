@@ -1,5 +1,6 @@
 """Carry parameters from the JAX package into the port: the flax modules'
-weights, the scene ``Model`` and the integrator ``SimState``.
+weights, the scene ``Model`` and the integrator ``SimState``; and the
+port's ``Model`` back to numpy.
 
 The caller turns the JAX tree into (nested) dicts of numpy arrays
 (``jax.tree.map(np.asarray, params)``, or a dataclass's fields); this
@@ -54,6 +55,13 @@ def model_from_numpy(leaves: Dict[str, Any], dtype=torch.float64,
     return Model(**{k: torch.as_tensor(np.array(leaves[k], np.float64),
                                        dtype=dtype, device=device)
                     for k in names})
+
+
+def model_to_numpy(model: Model) -> Dict[str, np.ndarray]:
+    """``{name: numpy array}`` of every leaf of the port's ``Model`` (the
+    inverse of ``model_from_numpy``; also takes a Model of cotangents)."""
+    return {f.name: getattr(model, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(Model)}
 
 
 def state_from_numpy(leaves: Dict[str, Any], dtype=torch.float64,

@@ -2,14 +2,18 @@
 (examples/RollingBallExp/test_sim_speed.py): a sphere under a
 force-controlled tactile pad of resolution^2 markers (200 x 200 = 40,000),
 BDF2, h = 5e-3, 350 steps of piecewise-constant pad forces, the tactile
-field read every 5 steps; prints the wall-clock FPS.
+field read every 5 steps; prints the wall-clock FPS. ``--grad`` also times
+BPTT: the gradient of a loss through the dense tactile field and the final
+ball position with respect to the chunk controls, over ``--grad-steps``
+steps.
 
     python -m tactilesimulation_tpu_torch.examples.rolling_ball_speed \
-        [--steps 350] [--resolution 200] [--f64] [--cpu]
+        [--steps 350] [--resolution 200] [--f64] [--cpu] \
+        [--grad [--grad-steps 100]]
 
-Runs on the CUDA card (the tactile reads go through the K4 kernel) and
-raises without one unless ``--cpu`` is given (then the plain PyTorch path
-runs).
+Runs on the CUDA card (the tactile reads of the forward run go through the
+read kernel; BPTT takes the differentiable field) and raises without one
+unless ``--cpu`` is given (then the plain PyTorch path runs).
 """
 
 import argparse
@@ -40,12 +44,39 @@ def sync(device):
         torch.cuda.synchronize(device)
 
 
+def bptt_loss(sim, model, state0, remat=True):
+    """loss(us (K, nu)) of the ``--grad`` protocol: the dense tactile field
+    at every chunk end and the final ball position, through
+    ``make_rollout_strided(STRIDE, fast_tactile=False)``."""
+    rollout = sim.make_rollout_strided(STRIDE, remat=remat,
+                                       fast_tactile=False)
+
+    def loss(us):
+        state, _, _, tacs = rollout(model, state0, us)
+        return torch.sum(tacs ** 2) * 1e3 + torch.sum(state.q[3:6] ** 2)
+
+    return loss
+
+
+def grad_of(loss, us):
+    us = us.detach().requires_grad_()
+    (g,) = torch.autograd.grad(loss(us), us)
+    return g
+
+
 def main(argv=None):
+    """Returns the timed forward rollout's outputs and, with ``--grad``,
+    (controls, gradient) of the last BPTT run (else None)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=350)
     ap.add_argument("--resolution", type=int, default=200)
     ap.add_argument("--f64", action="store_true")
     ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--grad", action="store_true",
+                    help="also time BPTT: d(loss through the dense tactile "
+                         "field + final ball position)/d(controls) over "
+                         "--grad-steps steps")
+    ap.add_argument("--grad-steps", type=int, default=100)
     args = ap.parse_args(argv)
 
     from tactilesimulation_tpu_torch.envs.tactile_push import resolve_device
@@ -94,7 +125,34 @@ def main(argv=None):
     print(f"tactile: max |normal| = {np.abs(tac[:, 2]).max():.4g}, "
           f"max |shear| = {np.linalg.norm(tac[:, :2], axis=1).max():.4g}, "
           f"active markers = {(np.abs(tac[:, 2]) > 1e-9).sum()}")
-    return out
+    if not args.grad:
+        return out, None
+
+    # BPTT: the gradient w.r.t. the first --grad-steps / STRIDE chunk
+    # controls; a first run, then the median of the later repeats with
+    # perturbed controls
+    Kg = max(args.grad_steps // STRIDE, 1)
+    us_g = us_chunks[:Kg]
+    loss = bptt_loss(sim, model, state0)
+    t0 = time.time()
+    g = grad_of(loss, us_g)
+    sync(device)
+    print(f"BPTT first run: {time.time() - t0:.1f}s")
+    rng = np.random.RandomState(200)
+    gts = []
+    for _ in range(3):
+        us_g = us_g + torch.as_tensor(1e-4 * rng.randn(*us_g.shape),
+                                      dtype=dtype, device=device)
+        t0 = time.time()
+        g = grad_of(loss, us_g)
+        sync(device)
+        gts.append(time.time() - t0)
+    dt = float(np.median(gts[1:]))
+    print(f"BPTT {Kg * STRIDE} steps: {dt:.3f}s "
+          f"({Kg * STRIDE / dt:.1f} steps/s), "
+          f"|g| = {float(torch.linalg.norm(g)):.4g}, "
+          f"finite = {bool(torch.isfinite(g).all())}")
+    return out, (us_g, g)
 
 
 if __name__ == "__main__":

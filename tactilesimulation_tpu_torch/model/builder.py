@@ -12,6 +12,7 @@ Port of ``tactilesimulation_tpu/model/builder.py`` (``build``):
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -346,3 +347,28 @@ def _quatmat(q):
         [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
         [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
     ])
+
+
+def update_body_density(spec_body_gtype, model: Model, body_index: int,
+                        density: float) -> Model:
+    """The reference's ``update_body_density``: body ``body_index``'s mass
+    becomes its volume (from the current size leaf) times ``density``, and
+    its inertia scales by the same ratio. New leaves, the old untouched."""
+    old_m = model.body_mass[body_index]
+    new_m = _unit(model, body_index, spec_body_gtype) * density
+    ratio = new_m / torch.clamp(old_m, min=1e-30)
+    mass = model.body_mass.detach().clone()
+    mass[body_index] = new_m
+    inertia = model.body_inertia.detach().clone()
+    inertia[body_index] = inertia[body_index] * ratio
+    return dataclasses.replace(model, body_mass=mass, body_inertia=inertia)
+
+
+def _unit(model: Model, bi: int, gtype: int):
+    """Volume of body bi from its current size leaf."""
+    s = model.body_size[bi]
+    if gtype == GEOM_CYLINDER:
+        return np.pi * s[0] ** 2 * (2 * s[1])
+    if gtype == GEOM_SPHERE:
+        return 4.0 / 3.0 * np.pi * s[0] ** 3
+    return s[0] * s[1] * s[2]

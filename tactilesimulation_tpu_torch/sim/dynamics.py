@@ -9,9 +9,9 @@ Port of ``tactilesimulation_tpu/sim/dynamics.py``:
 
 The body velocities (the JVP of FK along v) are the joints' world twists,
 written as plain ops (``twists``). ``el_terms`` and ``momentum`` are
-gradients of the Lagrangian; with an outer graph (q or v requiring grad)
-they are built with ``create_graph``, so the chord Jacobian can pull back
-through them.
+gradients of the Lagrangian; with an outer graph (q, v or a Model leaf
+requiring grad) they are built with ``create_graph``, so the chord
+Jacobian and the adjoint can pull back through them.
 
 Generalized contact forces: Q = (dX/dq)^T f for the application points X(q),
 one reverse pass through FK (the JAX package transposes ``jax.linearize``;
@@ -20,6 +20,8 @@ here ``torch.autograd.grad`` of the FK outputs with the force cotangents).
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import types
 
 import numpy as np
@@ -35,8 +37,33 @@ def _grad_input(x):
     return x.view_as(x) if x.requires_grad else x.detach().requires_grad_()
 
 
-def _outer_graph(*xs):
-    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+def outer_graph(model: Model, *xs):
+    """True if the result of an inner ``autograd.grad`` must keep its graph:
+    grad mode is on and q, v or a Model leaf requires grad (a state that
+    does not under a leaf that does, e.g. the momentum of the initial state
+    under a design parameter)."""
+    if not torch.is_grad_enabled():
+        return False
+    return (any(x.requires_grad for x in xs)
+            or any(getattr(model, f.name).requires_grad
+                   for f in dataclasses.fields(model)))
+
+
+def _keep(x):
+    return x
+
+
+@contextlib.contextmanager
+def inner_graph():
+    """Grad mode for a graph that is built and differentiated on the spot.
+
+    Its saved tensors are kept as they are, past any saved-tensor hooks of
+    the caller: under ``torch.utils.checkpoint(use_reentrant=False)`` a
+    tensor unpacked before the backward would rerun the checkpointed
+    function up to that point, once per inner ``autograd.grad``."""
+    with torch.enable_grad(), \
+            torch.autograd.graph.saved_tensors_hooks(_keep, _keep):
+        yield
 
 
 _DOFS = {}
@@ -192,8 +219,8 @@ def lagrangian(struct: Structure, model: Model, q, v):
 
 def el_terms(struct: Structure, model: Model, q, v):
     """(dL/dq, p = dL/dv) in one reverse pass."""
-    create = _outer_graph(q, v)
-    with torch.enable_grad():
+    create = outer_graph(model, q, v)
+    with inner_graph():
         q_, v_ = _grad_input(q), _grad_input(v)
         L = lagrangian(struct, model, q_, v_)
         dq, dv = torch.autograd.grad(L, (q_, v_), create_graph=create)
@@ -202,8 +229,8 @@ def el_terms(struct: Structure, model: Model, q, v):
 
 def momentum(struct: Structure, model: Model, q, v):
     """Generalized momentum p = dT/dv (equals M(q) v)."""
-    create = _outer_graph(q, v)
-    with torch.enable_grad():
+    create = outer_graph(model, q, v)
+    with inner_graph():
         v_ = _grad_input(v)
         T = kinetic_energy(struct, model, q, v_)
         (dv,) = torch.autograd.grad(T, (v_,), create_graph=create)
@@ -279,10 +306,10 @@ def contact_terms(struct: Structure, model: Model, q, v, tactile=True):
     ntac = len(struct.tac_joint)
     if not groups:
         return torch.zeros_like(q), q.new_zeros((ntac if tactile else 0, 3))
-    create = _outer_graph(q, v)
+    create = outer_graph(model, q, v)
     tabs = _group_tables(struct, q.device)
     tb = kinematics._tables(struct, q)
-    with torch.enable_grad():
+    with inner_graph():
         q_ = _grad_input(q)
         jp, jq, Om, be = twists(struct, model, q_, v)
         bj = tb.body_joint

@@ -1,4 +1,5 @@
-"""Implicit BDF1/BDF2 stepping of one instance, forward only.
+"""Implicit BDF1/BDF2 stepping of one instance, with the implicit-function
+adjoint of the solve.
 
 Port of ``tactilesimulation_tpu/sim/integrators.py``. One step solves the
 momentum-form residual
@@ -17,13 +18,19 @@ iterate (by residual norm) is returned. Coefficients:
 The step never waits for the device: the sweep count is fixed, a converged
 iterate is frozen by ``torch.where``, BDF2's first-step fallback is a
 ``torch.where`` on the step counter, and the LU is ``lu_factor_ex`` (no
-error check that would synchronise). The implicit-function adjoint of the
-solve is not ported yet: ``newton_solve`` refuses inputs that require grad
-while grad mode is on, and never backpropagates through the sweeps.
+error check that would synchronise).
 
-The chord Jacobian J = dr/dv comes from n reverse-mode pullbacks of one
-residual graph (row i = the pullback of the i-th basis cotangent), run as
-one batched backward pass; JAX forms it from ``jax.linearize``. Both factor
+Gradients: ``newton_solve`` is an ``autograd.Function`` whose backward is
+the implicit-function adjoint at the solution (JAX: the solve's
+``custom_vjp``). With J = dr/dv at v*, dv*/dtheta = -J^-1 dr/dtheta, so the
+backward is one transposed solve of the ridged J and one pullback of -lambda
+through the residual into u, q_base, p_base, gamma and every Model leaf
+(design parameters, the reference's ``flag_p``). The sweeps are never
+differentiated, and the warm start gets no cotangent.
+
+The Jacobian J = dr/dv comes from n reverse-mode pullbacks of one residual
+graph (row i = the pullback of the i-th basis cotangent), run as one
+batched backward pass; JAX forms it from ``jax.linearize``. Both factor
 the ridged J with a pivoted LU.
 """
 
@@ -88,18 +95,24 @@ def _detach(inputs: StepInputs) -> StepInputs:
                       gamma=inputs.gamma.detach())
 
 
+def _jacobian(r, v, retain_graph=False):
+    """J = dr/dv (n, n) from one residual graph: the n pullbacks as one
+    batched backward pass (vmap over the cotangents); row i is the pullback
+    of e_i."""
+    basis = torch.eye(v.shape[0], dtype=v.dtype, device=v.device)
+    (J,) = torch.autograd.grad(r, v, basis, retain_graph=retain_graph,
+                               is_grads_batched=True)
+    return J
+
+
 def chord_factor(residual_fn, inputs: StepInputs, v_guess):
     """(LU, pivots, r0): the pivoted LU of the ridged chord Jacobian
     J = dr/dv at the warm start, and the residual there; all detached."""
     inputs = _detach(inputs)
-    n = v_guess.shape[0]
-    with torch.enable_grad():
+    with dynamics.inner_graph():
         v = v_guess.detach().requires_grad_()
         r = residual_fn(v, inputs)
-        basis = torch.eye(n, dtype=v.dtype, device=v.device)
-        # the n pullbacks as one batched backward pass (vmap over the
-        # cotangents); row i is the pullback of e_i
-        (J,) = torch.autograd.grad(r, v, basis, is_grads_batched=True)
+        J = _jacobian(r, v)
     lu, piv, _ = torch.linalg.lu_factor_ex(_ridged(J))
     return lu, piv, r.detach()
 
@@ -128,26 +141,71 @@ def chord_sweeps(residual_fn, max_iter, tol, inputs: StepInputs, v_guess,
     return v_best
 
 
-def _requires_grad(inputs: StepInputs, v_guess) -> bool:
-    if any(t.requires_grad for t in (inputs.u, inputs.q_base, inputs.p_base,
-                                     inputs.gamma, v_guess)):
-        return True
-    m = inputs.model
-    return any(getattr(m, f.name).requires_grad
-               for f in dataclasses.fields(m))
+_LEAVES = tuple(f.name for f in dataclasses.fields(Model))
+
+
+def _requires_grad(inputs: StepInputs) -> bool:
+    return (any(t.requires_grad for t in (inputs.u, inputs.q_base,
+                                          inputs.p_base, inputs.gamma))
+            or any(getattr(inputs.model, k).requires_grad for k in _LEAVES))
+
+
+def _solve(residual_fn, max_iter, tol, inputs: StepInputs, v_guess):
+    factor = chord_factor(residual_fn, inputs, v_guess)
+    return chord_sweeps(residual_fn, max_iter, tol, inputs, v_guess, factor)
+
+
+class _NewtonSolve(torch.autograd.Function):
+    """The chord solve with the implicit-function adjoint at v*. Its tensor
+    arguments are u, q_base, p_base, gamma, v_guess and the Model's leaves
+    in field order (a Function takes tensors, not the dataclass)."""
+
+    @staticmethod
+    def forward(ctx, residual_fn, max_iter, tol, u, q_base, p_base, gamma,
+                v_guess, *leaves):
+        model = Model(*(x.detach() for x in leaves))
+        inputs = StepInputs(model, u, q_base, p_base, gamma)
+        v_star = _solve(residual_fn, max_iter, tol, inputs, v_guess)
+        ctx.residual_fn = residual_fn
+        ctx.save_for_backward(v_star, u, q_base, p_base, gamma, *leaves)
+        return v_star
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        v_star, *xs = ctx.saved_tensors
+        # u, q_base, p_base, gamma, then the leaves (v_guess gets none)
+        need = ctx.needs_input_grad[3:7] + ctx.needs_input_grad[8:]
+        with dynamics.inner_graph():
+            xs = [x.detach().requires_grad_(w) for x, w in zip(xs, need)]
+            v = v_star.detach().requires_grad_()
+            inputs = StepInputs(Model(*xs[4:]), *xs[:4])
+            r = ctx.residual_fn(v, inputs)
+            # J at v*, ridged as the chord's, solved transposed:
+            # _ridged(J)^T lam = g
+            J = _jacobian(r, v, retain_graph=True)
+            lu, piv, _ = torch.linalg.lu_factor_ex(_ridged(J))
+            lam = torch.linalg.lu_solve(lu, piv, g[:, None],
+                                        adjoint=True)[:, 0]
+            wrt = [x for x in xs if x.requires_grad]
+            got = iter(torch.autograd.grad(r, wrt, -lam,
+                                           materialize_grads=True)
+                       if wrt else ())
+        grads = [next(got) if w else None for w in need]
+        return (None, None, None, *grads[:4], None, *grads[4:])
 
 
 def newton_solve(residual_fn, max_iter, tol, inputs: StepInputs, v_guess):
-    """The chord solve, forward only. Raises while grad mode is on if any
-    input requires grad: the implicit-function adjoint is not ported, and
-    backpropagating through the sweeps would give a wrong gradient."""
-    if torch.is_grad_enabled() and _requires_grad(inputs, v_guess):
-        raise NotImplementedError(
-            "newton_solve has no backward yet (the single-instance IFT "
-            "adjoint is not ported); run it under torch.no_grad() or on "
-            "inputs that do not require grad")
-    factor = chord_factor(residual_fn, inputs, v_guess)
-    return chord_sweeps(residual_fn, max_iter, tol, inputs, v_guess, factor)
+    """The chord solve. Under grad mode, with an input that requires grad,
+    it runs as ``_NewtonSolve``, whose backward is the implicit-function
+    adjoint at the solution; otherwise as the plain solve."""
+    if torch.is_grad_enabled() and _requires_grad(inputs):
+        m = inputs.model
+        return _NewtonSolve.apply(
+            residual_fn, max_iter, tol, inputs.u, inputs.q_base,
+            inputs.p_base, inputs.gamma, v_guess,
+            *(getattr(m, k) for k in _LEAVES))
+    return _solve(residual_fn, max_iter, tol, inputs, v_guess)
 
 
 def step_inputs(struct: Structure, model: Model, state: SimState, u):

@@ -11,9 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (ACTOR_CFG, K1T_TOL, K1_SCENES, K23_F32_VS_F64,
-                        K23_F64_TOL, K4_TOL, READ_SCENES, READ_TOL, Smoke,
-                        block_chain, contact_state, pair_wrench_inputs,
+from chip_smoke import (ACTOR_CFG, ADJ_F64_TOL, K1T_TOL, K1_SCENES,
+                        K23_F32_VS_F64, K23_F64_TOL, K4_TOL, READ_SCENES,
+                        READ_TOL, Smoke, block_chain, contact_state,
+                        facade_backward, max_rel, pair_wrench_inputs,
                         read_case)
 from tactilesimulation_tpu_torch.envs import tactile_push_lanes
 from tactilesimulation_tpu_torch.model import task_scenes
@@ -463,3 +464,68 @@ def test_tactile_read_sees_model_edits(card):
     scale = float(want.abs().max())
     assert not torch.equal(got, before)
     assert float((got - want).abs().max()) <= READ_TOL[torch.float64] * scale
+
+
+def test_facade_backward_on_card_matches_cpu(card):
+    """``backward()`` and ``backward_steps(2)`` with every flag on, on
+    RollingBall 8x8 pressed, float64: card within ADJ_F64_TOL of the CPU."""
+    struct, model = task_scenes.rolling_ball(resolution=8)
+    q, v = Smoke.pressed_ball(model.q_init.numpy())
+    got = facade_backward(struct, model, card, torch.float64, q, v)
+    want = facade_backward(struct, model, torch.device("cpu"),
+                           torch.float64, q, v)
+    assert all(float(w.abs().max()) > 0 for w in want.values())
+    for k, err in max_rel(got, want).items():
+        assert err <= ADJ_F64_TOL, (k, err)
+
+
+def test_strided_rollout_under_grad_launches_no_read(card):
+    """The read kernel has no backward: under grad the strided rollout
+    takes the differentiable field even with ``fast_tactile``, and the
+    tactile term's gradient is non-zero; without grad it reads through the
+    kernel, to the same values."""
+    struct, model = task_scenes.rolling_ball(resolution=8)
+    model = model.to(card, torch.float32)
+    q, v = Smoke.pressed_ball(model.q_init.cpu().numpy())
+    sim = simulation.Simulator(struct, model)
+    rollout = sim.make_rollout_strided(5, fast_tactile=True)
+    us = torch.tensor([[0.1, 0.0, 0.2]] * 2, device=card, requires_grad=True)
+    dense_contact.reset_counts()
+    _, _, _, tacs = rollout(model, sim.init_state(q=q, qdot=v), us)
+    (g,) = torch.autograd.grad(torch.sum(tacs ** 2), us)
+    assert (dense_contact.read_launches, dense_contact.launches) == (0, 0)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+    with torch.no_grad():
+        _, _, _, fast = rollout(model, sim.init_state(q=q, qdot=v), us)
+    assert dense_contact.read_launches == 2
+    scale = float(tacs.abs().max())
+    assert float((fast - tacs.detach()).abs().max()) <= 1e-4 * scale
+
+
+def test_facade_read_sees_update_edits(card):
+    """A facade read after ``update_tactile_parameters`` and after
+    ``update_body_size`` (the ball) launches the read with the new leaves:
+    it equals the plain version on the edited model and differs from the
+    read before."""
+    struct, model = task_scenes.rolling_ball(resolution=8)
+    q, v = Smoke.pressed_ball(model.q_init.numpy())
+    fac = simulation.Simulation((struct, model), device=card,
+                                dtype=torch.float64)
+    fac.set_state_init(q, v)
+    fac.reset()
+    prev = fac.get_tactile_force_vector()
+    assert np.abs(prev).max() > 0
+    for edit in (lambda f: f.update_tactile_parameters("pad", kn=2.0),
+                 lambda f: f.update_body_size("object", [0.021])):
+        edit(fac)
+        dense_contact.reset_counts()
+        got = fac.get_tactile_force_vector()
+        assert dense_contact.read_launches == 1
+        want = tactile_query.tactile_field_ref(
+            struct, fac.model, fac._state.q, fac._state.qdot).reshape(-1)
+        want = want.cpu().numpy()
+        assert np.abs(got - want).max() <= (READ_TOL[torch.float64]
+                                            * np.abs(want).max())
+        assert not np.array_equal(got, prev)
+        prev = got
+

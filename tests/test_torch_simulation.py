@@ -14,9 +14,10 @@ JAX package (f64, CPU).
   pinned together by tests/test_ops.py and test_torch_dense_contact.py).
 - The facade: ``forward(3)`` equals three ``forward(1)``;
   ``get_tactile_force_vector`` matches the JAX facade's; the flow images'
-  shapes; what is not ported raises.
-- ``convert.model_from_numpy`` / ``state_from_numpy`` round trips, and the
-  solve's refusal of a gradient.
+  shapes; the card is the default; ``reset(backward_flag=True)`` records
+  the controls and the state before each step.
+- ``convert.model_from_numpy`` / ``state_from_numpy`` round trips.
+  The gradients are in ``test_torch_backward.py``.
 """
 
 import dataclasses
@@ -173,8 +174,21 @@ def test_facade(rolling):
     np.testing.assert_allclose(sim.export_trajectory(), traj_scan,
                                rtol=1e-12, atol=1e-15)
     assert np.all(np.isfinite(sim.get_qdot()))
-    with pytest.raises(NotImplementedError):
-        sim.reset(backward_flag=True)
+    # recording for the backward engine: reset seeds the first snapshot,
+    # each step appends its control and the state before it (JAX's facade
+    # records the same)
+    sim.reset(backward_flag=True)
+    sim.set_u([0.0, 0.0, 0.2])
+    sim.forward(1)
+    sim.forward(2)
+    ep = sim._episode
+    assert len(ep.us) == 3 and len(ep.state_snapshots) == 4
+    np.testing.assert_array_equal(ep.q0, q)
+    np.testing.assert_array_equal(ep.state_snapshots[0].q.numpy(), q)
+    assert [int(s.t) for s in ep.state_snapshots] == [0, 0, 1, 2]
+    np.testing.assert_allclose(ep.state_snapshots[-1].q.numpy(),
+                               traj_scan[2], rtol=1e-12, atol=1e-15)
+    np.testing.assert_allclose(sim.get_q(), q_scan, rtol=1e-12, atol=1e-15)
 
 
 def test_convert_round_trip(rolling):
@@ -192,17 +206,9 @@ def test_convert_round_trip(rolling):
         np.testing.assert_array_equal(getattr(ts, name).numpy(),
                                       np.asarray(getattr(js, name)))
     assert ts.t.dtype == torch.int32
+    for k, a in convert.model_to_numpy(mt).items():
+        np.testing.assert_array_equal(a, np.asarray(getattr(mj, k)))
     m32 = convert.model_from_numpy(_leaves(mj), dtype=torch.float32)
     assert m32.dtype == torch.float32
     with pytest.raises(KeyError):
         convert.model_from_numpy({"h": np.zeros(())})
-
-
-def test_solve_refuses_a_gradient(rolling):
-    tsim, mt = rolling["tsim"], rolling["mt"]
-    state = tsim.init_state(q=rolling["q"], qdot=rolling["v"])
-    u = torch.zeros(3, dtype=torch.float64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tsim.step(mt, state, u)
-    with torch.no_grad():
-        assert bool(torch.isfinite(tsim.step(mt, state, u).q).all())
