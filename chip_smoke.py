@@ -76,7 +76,8 @@ seconds):
  7. rolling - slice 3: (a) the RollingBall sim-speed path at its published
               size (200 x 200 = 40,000 markers, BDF2, float32) through
               ``Simulator.make_rollout_strided(5, fast_tactile=True)``, 350
-              steps (cut to 150 if the probe chunk predicts more than
+              steps (cut to ROLL_CUT, past the pad's reaching the ball at
+              step 75, if the probe chunk predicts more than
               ROLL_BUDGET_S): one read-kernel launch per tactile read and
               no points-entry launch, q finite, the field nonzero by the
               end; steps/s, ms per step split into factor, sweeps and
@@ -103,6 +104,29 @@ seconds):
               float32 held to the CPU float32 run's distance from float64;
               (c) the facade's ``backward()`` and ``backward_steps(2)``
               with every flag on, card against CPU in float64.
+ 9. ppo     - slice 8, PPO on TactilePush (``envs.make("TactilePush-v1")``,
+              the single-instance env stepped N = 8 times per vector step,
+              ``algorithms.ppo.PPO`` from ppo_tactile.yaml at its widths,
+              f32): (a) a probe env step (x N) picks T for PPO_BUDGET_S of
+              rollout (at least PPO_T_MIN), num_mini_batch the largest
+              divisor of N x T up to the config's 32; ``train(stop_update
+              =1)`` and ``play_once`` for PPO_PLAY steps: one read-kernel
+              launch per observation (N x (1 + T) + 1 + PPO_PLAY) and no
+              points-entry launch; ms per vector step, env steps/s, the
+              update's ms, peak memory, finite loss, parameters and
+              rewards; the rollout's host seconds split into env steps,
+              the policy's act and the obs normalisation; from the last
+              vector state, the eager aten ops of an env step, the
+              device's busy share over a substep, and its N reads held to
+              the plain version (the read kernel's float64 instance at the
+              same states on the float64 scene to READ_TOL on every row,
+              some row in contact; the float32 observations by
+              PPO_READ_F32_VS_F64);
+              (b) the single-instance env from a seeded reset, 3 steps into
+              the box: the card against the CPU, float64 within
+              PPO_F64_TOL of scale (q, qdot, the tactile_flatten and
+              privilege obs, the rewards), float32 held to the CPU float32
+              run's distance from float64.
 
 The line before the card's line is the kernel table as JSON; the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -209,7 +233,7 @@ K4_N = 40000             # RollingBall 200 x 200 markers against the sphere
 # on READ_SCENES.
 READ_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 READ_ROUNDING_ROWS = 0.01
-ROLL_RES, ROLL_STRIDE, ROLL_STEPS, ROLL_CUT = 200, 5, 350, 150
+ROLL_RES, ROLL_STRIDE, ROLL_STEPS, ROLL_CUT = 200, 5, 350, 100
 ROLL_BUDGET_S = 150.0    # cut the rolling main path to ROLL_CUT past this
 # card against CPU over 10 RollingBall steps from the pad pressed onto the
 # ball (see rolling()), each max abs over the CPU float64 run's scale.
@@ -233,6 +257,31 @@ ADJ_BUDGET_S = 90.0
 # gradient's max abs error over its CPU scale; float32 is held to the CPU
 # float32 run's distance from float64 (ROLL_F32_VS_F64)
 ADJ_F64_TOL = 1e-9
+# the ppo phase: PPO on TactilePush by ppo_tactile.yaml (its nets and
+# N = 8), the rollout cut to the vector steps a probe says fit
+# PPO_BUDGET_S (at least PPO_T_MIN), one update, then play_once for
+# PPO_PLAY steps; card against CPU over PPO_CROSS_US from a seeded reset
+# (the pad reaches the box by the third step), float64 to PPO_F64_TOL of
+# scale (the same algorithm to round-off), float32 held to the CPU float32
+# run's distance from float64 (ROLL_F32_VS_F64)
+PPO_BUDGET_S = 90.0
+PPO_T_MIN = 2
+PPO_PLAY = 3
+PPO_CROSS_US = ((2.0, 0.3, -0.2), (2.0, -0.1, 0.1), (1.5, 0.0, 0.0))
+PPO_F64_TOL = 1e-9
+# the PPO run's float32 reads against the float64 plain version (the same
+# float32 model, widened): within 3 x the float32 plain version's distance
+# + 1e-5 of scale. Not the kernels phase's per-row rule: TactilePush's
+# light contact (mN) takes its depth from a difference of near-equal
+# coordinates, so the float32 plain version itself parts from float64 by
+# more than READ_TOL on far more than READ_ROUNDING_ROWS of the rows (the
+# phase prints how many). Not K23_F32_VS_F64's 1.25: K2/K3's plain version
+# runs their algorithm, whose float32 error matches theirs to three
+# digits, while the read's plain version takes the markers' velocities
+# from analytic twists where the kernel takes FK's dual part, another
+# rounding (the kernel's error was 0.87, 1.39, 2.08 and 2.12 x the plain
+# version's in four runs on the card)
+PPO_READ_F32_VS_F64 = (3.0, 1e-5)
 MEGA = "tactilesimulation_tpu_torch/csrc/megastep.cu"
 LANE = "tactilesimulation_tpu_torch/csrc/lane_contact.cu"
 DENSE = "tactilesimulation_tpu_torch/csrc/dense_contact.cu"
@@ -254,6 +303,8 @@ KERNELS = [dict(name="K1 lane_contact", key="K1", lib="lane_contact",
            dict(name="K4 tactile read", key="K4R", lib="dense_contact",
                 route="cuda", source=DENSE,
                 replaces="tactilesimulation_tpu/ops/dense_contact.py:174")]
+PPO_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "examples", "TactilePushExp", "cfg", "ppo_tactile.yaml")
 GD_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
                       "TactilePushExp", "cfg", "gd_tactile.yaml")
 
@@ -1728,12 +1779,13 @@ class Smoke:
         card against the CPU."""
         from tactilesimulation_tpu_torch.examples import rolling_ball_speed
         from tactilesimulation_tpu_torch.model import task_scenes
-        from tactilesimulation_tpu_torch.ops import dense_contact
+        from tactilesimulation_tpu_torch.ops import dense_contact, tactile_query
         from tactilesimulation_tpu_torch.sim import integrators, simulation
         struct, model64 = task_scenes.rolling_ball(resolution=ROLL_RES)
         model = model64.to(dev, torch.float32)
         sim = simulation.Simulator(struct, model)
-        if not (sim.points_major and sim._use_fast_tactile(model)):
+        if not (sim.points_major and model.h.is_cuda
+                and tactile_query.may_read(struct, model)):
             raise AssertionError("the RollingBall path did not pick the "
                                  "points-major step and the K4 query")
         rollout = sim.make_rollout_strided(ROLL_STRIDE, remat=False,
@@ -1748,7 +1800,6 @@ class Smoke:
             return torch.as_tensor(rolling_ball_speed.control_chunks(
                 steps, struct.ndof_u), dtype=torch.float32, device=dev)
 
-        from tactilesimulation_tpu_torch.ops import tactile_query
         step = sim.step
 
         def timed(fn, n=3):
@@ -2037,6 +2088,274 @@ class Smoke:
         print(f"  (2 facades in {time.perf_counter() - t0:.1f} s)")
         self._card_vs_cpu(facs, "facade")
 
+    # 9 -------------------------------------------------------------------
+    def ppo(self, dev):
+        """Slice 8: PPO on TactilePush through the env registry, the vector
+        env of single-instance envs and the trainer, every observation
+        read by the read kernel; then the single-instance env, card
+        against CPU."""
+        import copy
+        import yaml
+        from tactilesimulation_tpu_torch import envs
+        from tactilesimulation_tpu_torch.algorithms.ppo import PPO
+        from tactilesimulation_tpu_torch.ops import (dense_contact,
+                                                    tactile_query)
+        from tactilesimulation_tpu_torch.utils.tree import tree_index
+        with open(PPO_CFG) as fp:
+            cfg = yaml.safe_load(fp)["params"]
+        conf = cfg["config"]
+        N = conf["num_processes"]
+        env = envs.make(cfg["env"]["name"],
+                        observation_type=cfg["env"]["observation_type"],
+                        device=dev, dtype=torch.float32, seed=0)
+
+        def trainer(T):
+            c = copy.deepcopy(cfg)
+            nmb = max(d for d in range(1, conf["num_mini_batch"] + 1)
+                      if (N * T) % d == 0)
+            c["config"].update(num_steps=T, num_env_steps=N * T,
+                               num_mini_batch=nmb)
+            return PPO(env, c, seed=0)
+
+        # probe: one env step (with the first use of the read plan and the
+        # allocator in it); a vector step is N of them one after another
+        # (the policy and the normalisation take about 1 ms of it)
+        with torch.no_grad():
+            state, _ = env.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            env.step(state, torch.zeros(env.ndof_u, device=dev))
+            torch.cuda.synchronize()
+        step_s = N * (time.perf_counter() - t0)
+        T = min(conf["num_steps"],
+                max(PPO_T_MIN, int(PPO_BUDGET_S / step_s)))
+        print(f"  probe: one env step {step_s / N:.3f} s, so a vector step "
+              f"(N = {N}) about {step_s:.3f} s; {PPO_BUDGET_S:.0f} s of "
+              f"rollout fit T = {T} [{self.card}]")
+
+        # (a) the main path: one update of ppo_tactile.yaml at its widths
+        algo = trainer(T)
+        print(f"  CUT: num_steps {conf['num_steps']} -> {T}, num_env_steps "
+              f"{conf['num_env_steps']} -> {N * T} (one update), "
+              f"num_mini_batch {conf['num_mini_batch']} -> "
+              f"{algo.num_mini_batch} (a divisor of N x T = {N * T}); "
+              f"kept: N = {N}, ppo_epoch {algo.ppo_epoch}, the nets "
+              f"{cfg['network']['actor_mlp']['layer_sizes']} "
+              f"{cfg['network']['actor_mlp']['activation']}, obs "
+              f"{env.obs_size()}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        dense_contact.reset_counts()
+        t0 = time.perf_counter()
+        algo.train(stop_update=1)
+        wall = time.perf_counter() - t0
+        env.max_episode_steps, full = PPO_PLAY, env.max_episode_steps
+        try:
+            ret, played, _ = algo.play_once()
+        finally:
+            env.max_episode_steps = full
+        torch.cuda.synchronize()
+        reads, points = dense_contact.read_launches, dense_contact.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = N * (1 + T + T // full) + 1 + played
+        last = algo.last_update
+        rollout_s, update_s = last["rollout_s"], last["update_s"]
+        metrics, raw_r = last["metrics"], last["raw_rewards"]
+        print(f"  read kernel launches {reads} (want {want}: N x (1 + T) "
+              f"reads in training, 1 + {played} in play_once); points "
+              f"entry launches {points} (want 0)")
+        print(f"  PPO TactilePush f32, N = {N}, T = {T}: train(stop_update"
+              f"=1) {wall:.2f} s; rollout {rollout_s:.3f} s, "
+              f"{rollout_s / T * 1e3:.1f} ms per vector step, "
+              f"{N * T / rollout_s:.4f} env steps/s; update "
+              f"{update_s * 1e3:.1f} ms ({algo.ppo_epoch} x "
+              f"{algo.num_mini_batch} minibatches of "
+              f"{N * T // algo.num_mini_batch}); peak memory "
+              f"{peak / 2**20:.1f} MiB, {(peak - base) / 2**20:.1f} MiB above "
+              f"what was allocated before the run [{self.card}]")
+        print(f"  loss {float(metrics[0]):.5f}, action loss "
+              f"{float(metrics[1]):.5f}, value loss {float(metrics[2]):.5f},"
+              f" entropy {float(metrics[3]):.4f}; mean reward "
+              f"{float(raw_r.mean()):.4f}; play_once: {played} steps, "
+              f"return {ret:.4f}")
+        if (reads, points) != (want, 0):
+            raise AssertionError(f"the read kernel launched {reads} times, "
+                                 f"the points entry {points}; want {want} "
+                                 "and 0")
+        params = list(algo.ac.parameters())
+        if not (bool(torch.isfinite(metrics).all())
+                and all(bool(torch.isfinite(p).all()) for p in params)
+                and bool(torch.isfinite(raw_r).all())
+                and math.isfinite(ret)):
+            raise AssertionError("non-finite loss, parameters or rewards")
+        self.kernel_rows.setdefault("K4R", {})["launches"] = \
+            self.kernel_rows.get("K4R", {}).get("launches", 0) + reads
+
+        # the main run's last vector state: one env step's eager ops, and
+        # (below) the profiler and its reads held to the plain version
+        vec = last["vec"]
+        with torch.no_grad():
+            nobs = algo._norm_obs(algo.norm.obs_rms, vec.obs)
+            action = algo.ac.act(nobs, deterministic=True)[1]
+            state0 = tree_index(vec.env_states, 0)
+            with AtenCount() as count:
+                env.step(state0, action[0])
+        print(f"  a vector step's host seconds (the rollout's split, per "
+              f"step): {N} env steps {last['env_s'] / T * 1e3:.1f} ms, the "
+              f"policy's act {last['act_s'] / T * 1e3:.3f} ms, the obs "
+              f"normalisation {last['norm_s'] / T * 1e3:.3f} ms; eager aten "
+              f"ops per env step {count.n} [{self.card}]")
+        # the profiler over one substep: a vector step is 8 env steps of 5
+        # substeps each, about 1.9 million kernels, and a trace's read-back
+        # grows with its events (the adjoint phase's 5-step chunk, 427,516
+        # kernels, took minutes); every substep runs the same ops, and the
+        # rest of an env step and the policy's ops are under 1 % of them
+        u6 = torch.cat([torch.tanh(action[0]), action.new_zeros(3)])
+        self.device_share(lambda: env._step_sim(env.model, state0.sim, u6),
+                          "one substep of the vector step")
+        # the vector step's reads against the plain version. In float64
+        # the read kernel's double instance at the same states, to READ_TOL
+        # on every row, on the float64 scene's model. (The float32 model
+        # widened will not do: its unit quaternions are off the unit
+        # sphere by up to 2^-24, and the kernel's twist, 2 q' q*, and the
+        # plain version's analytic twists part there by about 1e-8 of
+        # scale; the phase prints that distance too.) In float32 each
+        # observation is held to the float64 plain version on the same
+        # model, widened (PPO_READ_F32_VS_F64)
+        struct = env.struct
+        m64 = envs.make(cfg["env"]["name"],
+                        observation_type=cfg["env"]["observation_type"],
+                        device=dev, dtype=torch.float64).model
+        widened = env.model.to(dev, torch.float64)
+        off_unit = float((widened.joint_quat.norm(dim=-1) - 1).abs().max())
+        mult, floor = PPO_READ_F32_VS_F64
+        plain = tactile_query.tactile_field_ref
+        row = lambda a, b: (a.double() - b.double()).abs().amax(dim=1)
+        active, parted, worst_w = 0, 0, 0.0
+        worst64, worst = (0.0, -1, -1), (0.0, 0.0)
+        for i in range(N):
+            q = vec.env_states.sim.q[i].double()
+            v = vec.env_states.sim.qdot[i].double()
+            ref64 = plain(struct, m64, q, v)
+            scale = float(ref64.abs().max())
+            e64 = row(tactile_query.tactile_field(struct, m64, q, v), ref64)
+            r = int(e64.argmax())
+            if not float(e64[r]) <= READ_TOL[torch.float64] * scale:
+                raise AssertionError(
+                    f"ppo env {i}: the f64 read is {float(e64[r]):.3e} off "
+                    f"the plain version on row {r} (scale {scale:.3e})")
+            active += int((ref64.abs().sum(dim=1) > 0).sum())
+            if scale > 0:
+                worst64 = max(worst64, (float(e64[r]) / scale, i, r))
+            refw = plain(struct, widened, q, v)
+            scale = max(float(refw.abs().max()), 1e-30)
+            worst_w = max(worst_w, float(row(tactile_query.tactile_field(
+                struct, widened, q, v), refw).max()) / scale)
+            got = vec.obs[i, 3:].reshape(-1, 3)
+            ref32 = plain(struct, env.model, q.float(), v.float())
+            e_k = float(row(got, refw).max()) / scale
+            e_p = row(ref32, refw) / scale
+            parted += int((e_p > READ_TOL[torch.float32]).sum())
+            worst = max(worst, (e_k, float(e_p.max())))
+            if not e_k <= mult * float(e_p.max()) + floor:
+                raise AssertionError(
+                    f"ppo env {i}: the read is {e_k:.3e} of scale off the "
+                    f"float64 plain version, the float32 one "
+                    f"{float(e_p.max()):.3e}")
+        if active == 0:
+            raise AssertionError("ppo: no marker touches the box in the "
+                                 "vector step's states")
+        print(f"  the vector step's {N} reads against the plain version: "
+              f"{active} rows in contact; the f64 read on the f64 scene "
+              f"{worst64[0]:.3e} of scale (env {worst64[1]}, row "
+              f"{worst64[2]}; tol {READ_TOL[torch.float64]:g}); on the f32 "
+              f"model widened (|joint_quat| - 1 up to {off_unit:.2e}) "
+              f"{worst_w:.3e}; the observations (f32) {worst[0]:.3e} of "
+              f"scale from float64, the f32 plain version {worst[1]:.3e} "
+              f"(tol {mult:g} x it + {floor:g}), which parts from float64 "
+              f"by more than {READ_TOL[torch.float32]:g} on {parted} of "
+              f"{N * struct.ndof_tactile // 3} rows")
+
+        # (b) the single-instance env, card against CPU
+        self.ppo_cross(dev)
+
+    def ppo_cross(self, dev):
+        """The single-instance TactilePush env (tactile_flatten) from a
+        seeded reset with injected draws, PPO_CROSS_US: the card (the read
+        kernel) against the CPU (its plain version), float64 within
+        PPO_F64_TOL of scale; float32 held to the CPU float32 run's distance
+        from float64."""
+        from tactilesimulation_tpu_torch.envs import tactile_push
+        from tactilesimulation_tpu_torch.ops import dense_contact
+        H = len(PPO_CROSS_US)
+        rng = np.random.RandomState(9)
+        gy = rng.uniform(-0.2, 0.2)
+        reset = (np.array([rng.uniform(-0.02, 0.02)]),
+                 np.array([[rng.uniform(0.15, 0.25)], [gy],
+                           [gy * np.pi + rng.uniform(-np.pi / 16,
+                                                     np.pi / 16)]]))
+        # a resampled disturbance at t = 0, kept after
+        dist = [(np.array([False]), rng.uniform(-1, 1, (2, 1)))
+                for _ in range(H)]
+        runs = {}
+        cpu = torch.device("cpu")
+        for where, dtype in ((dev, torch.float64), (cpu, torch.float64),
+                             (dev, torch.float32), (cpu, torch.float32)):
+            env = tactile_push.make("tactile_flatten", device=where,
+                                    dtype=dtype)
+            draws = iter(dist)
+
+            def injected(what, B, where=where, dtype=dtype, draws=draws):
+                a, b = reset if what == "reset" else next(draws)
+                return (torch.as_tensor(a, device=where),
+                        torch.as_tensor(b, device=where, dtype=dtype))
+
+            env._draw = injected
+            dense_contact.reset_counts()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                state, obs = env.reset()
+                rewards = []
+                for u in PPO_CROSS_US:
+                    state, obs, r, _, _ = env.step(
+                        state, torch.tensor(u, dtype=dtype, device=where))
+                    rewards.append(r)
+            q = state.sim.q
+            out = {"q": q, "qdot": state.sim.qdot, "tactile_flatten": obs,
+                   "privilege": tactile_push.observation(
+                       "privilege", q, state.extras.tactile,
+                       state.extras.goal),
+                   "reward": torch.stack(rewards)}
+            label = "card" if where is dev else "cpu"
+            runs[(label, dtype)] = {k: v.double().cpu()
+                                    for k, v in out.items()}
+            reads = dense_contact.read_launches
+            print(f"  {label} {dtype}: reset + {H} env steps in "
+                  f"{time.perf_counter() - t0:.2f} s, read kernel launches "
+                  f"{reads}")
+            if reads != (1 + H if where.type == "cuda" else 0):
+                raise AssertionError(f"{label}: {reads} read launches "
+                                     f"for {1 + H} reads")
+        ref = runs[("cpu", torch.float64)]
+        if not float(ref["tactile_flatten"][3:].abs().max()) > 0:
+            raise AssertionError("the pad never touched the box")
+        bad = []
+        for k, w in ref.items():
+            e64 = max_rel({k: runs[("card", torch.float64)][k]}, {k: w})[k]
+            e_card = max_rel({k: runs[("card", torch.float32)][k]},
+                             {k: w})[k]
+            e_cpu = max_rel({k: runs[("cpu", torch.float32)][k]}, {k: w})[k]
+            mult, floor = ROLL_F32_VS_F64
+            print(f"  {k:15s} card f64 vs cpu f64 {e64:.3e} (tol "
+                  f"{PPO_F64_TOL:g}); f32 vs cpu f64: card {e_card:.3e}, "
+                  f"cpu {e_cpu:.3e} (tol {mult:g} x cpu + {floor:g})")
+            if not e64 <= PPO_F64_TOL:
+                bad.append(f"{k} f64")
+            if not e_card <= mult * e_cpu + floor:
+                bad.append(f"{k} f32")
+        if bad:
+            raise AssertionError(f"TactilePush env, card vs CPU: {bad}")
+
     def _card_vs_cpu(self, runs, what):
         """Card float64 within ADJ_F64_TOL of the CPU's; card float32 within
         ROLL_F32_VS_F64 of the CPU float32 run's distance from float64."""
@@ -2083,6 +2402,7 @@ def main() -> int:
         s.phase("cross", s.cross, dev)
         s.phase("rolling", s.rolling, dev)
         s.phase("adjoint", s.adjoint, dev)
+        s.phase("ppo", s.ppo, dev)
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failed:
         print(f"FAILED phases: {s.failed}")

@@ -1,1 +1,2 @@
-"""Policy optimisation on the lane-major envs."""
+"""Policy optimisation: GD on the lane-major envs, PPO on the
+single-instance envs."""

@@ -43,9 +43,12 @@ def global_norm(tensors) -> torch.Tensor:
 def linear_schedule(init_value: float, end_value: float,
                     transition_steps: int):
     """``optax.linear_schedule``: init to end over ``transition_steps``
-    updates, then constant. Evaluated in float32, as optax evaluates it on
-    its int32 step count."""
+    updates, then constant (init throughout when ``transition_steps`` <=
+    0). Evaluated in float32, as optax evaluates it on its int32 step
+    count."""
     f32 = np.float32
+    if transition_steps <= 0:      # optax: a constant schedule
+        return lambda count: init_value
 
     def lr(count: int) -> float:
         c = min(max(count, 0), transition_steps)

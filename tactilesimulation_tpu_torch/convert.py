@@ -24,21 +24,63 @@ def _dense(prefix: str, dense: Dict[str, Any], out: Dict[str, torch.Tensor]):
     out[f"{prefix}.bias"] = torch.as_tensor(np.array(dense["bias"]))
 
 
-def actor_params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """State dict of ``models.nets.DiagGaussianActor`` from the param tree of
-    the flax ``DiagGaussianActor`` (with or without the top ``"params"``)."""
-    p = tree.get("params", tree)
-    out: Dict[str, torch.Tensor] = {}
-    mlp = p["MLP_0"]
+def _mlp(prefix: str, mlp: Dict[str, Any], out: Dict[str, torch.Tensor]):
     n_dense = sum(1 for k in mlp if k.startswith("Dense_"))
     for i in range(n_dense):
-        _dense(f"mlp.layers.{i}", mlp[f"Dense_{i}"], out)
+        _dense(f"{prefix}.layers.{i}", mlp[f"Dense_{i}"], out)
         if f"LayerNorm_{i}" in mlp:
             ln = mlp[f"LayerNorm_{i}"]
-            out[f"mlp.norms.{i}.weight"] = torch.as_tensor(np.array(ln["scale"]))
-            out[f"mlp.norms.{i}.bias"] = torch.as_tensor(np.array(ln["bias"]))
-    _dense("mean", p["Dense_0"], out)
-    out["logstd"] = torch.as_tensor(np.array(p["logstd"]))
+            out[f"{prefix}.norms.{i}.weight"] = torch.as_tensor(
+                np.array(ln["scale"]))
+            out[f"{prefix}.norms.{i}.bias"] = torch.as_tensor(
+                np.array(ln["bias"]))
+
+
+def _cnn(prefix: str, cnn: Dict[str, Any], out: Dict[str, torch.Tensor]):
+    n_conv = sum(1 for k in cnn if k.startswith("Conv_"))
+    for i in range(n_conv):
+        conv = cnn[f"Conv_{i}"]
+        # flax Conv.kernel is HWIO; torch Conv2d.weight is OIHW
+        out[f"{prefix}.convs.{i}.weight"] = torch.as_tensor(
+            np.array(conv["kernel"]).transpose(3, 2, 0, 1).copy())
+        out[f"{prefix}.convs.{i}.bias"] = torch.as_tensor(
+            np.array(conv["bias"]))
+    # the port's CNN flattens in flax's (H, W, C) order: the Dense's rows
+    # carry over as they are
+    _dense(f"{prefix}.dense", cnn["Dense_0"], out)
+
+
+def _actor(prefix: str, p: Dict[str, Any], out: Dict[str, torch.Tensor]):
+    if "CNN_0" in p:
+        _cnn(f"{prefix}cnn", p["CNN_0"], out)
+    else:
+        _mlp(f"{prefix}mlp", p["MLP_0"], out)
+    _dense(f"{prefix}mean", p["Dense_0"], out)
+    out[f"{prefix}logstd"] = torch.as_tensor(np.array(p["logstd"]))
+
+
+def actor_params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """State dict of ``models.nets.DiagGaussianActor`` (or ``CNNActor``)
+    from the param tree of the flax module (with or without the top
+    ``"params"``)."""
+    out: Dict[str, torch.Tensor] = {}
+    _actor("", tree.get("params", tree), out)
+    return out
+
+
+def actor_critic_params_from_numpy(tree: Dict[str, Any]
+                                   ) -> Dict[str, torch.Tensor]:
+    """State dict of ``models.nets.ActorCritic`` from the param tree of the
+    flax ``ActorCritic`` (MLP or CNN actor and critic)."""
+    p = tree.get("params", tree)
+    out: Dict[str, torch.Tensor] = {}
+    _actor("actor.", p["actor"], out)
+    critic = p["critic"]
+    if "CNN_0" in critic:
+        _cnn("critic.cnn", critic["CNN_0"], out)
+    else:
+        _mlp("critic.mlp", critic["MLP_0"], out)
+    _dense("critic.value", critic["Dense_0"], out)
     return out
 
 

@@ -54,13 +54,17 @@ class TactilePushLanes:
 
     def __init__(self, observation_type: str = "tactile_flatten", *,
                  device="cuda", dtype=torch.float32, max_iter: int = 0,
-                 seed: int = 0):
-        env = tactile_push.make(observation_type, device=device, dtype=dtype)
+                 seed: int = 0, env: tactile_push.TactilePushEnv = None):
+        """``env``: the single-instance env whose scene to batch (its own
+        device and dtype); a new bundled scene when None."""
+        if env is None:
+            env = tactile_push.make(observation_type, device=device,
+                                    dtype=dtype)
         self.env = env
         self.struct = env.struct
         self.model = env.model
         self.device = env.model.device
-        self.dtype = dtype
+        self.dtype = env.dtype
         self.observation_type = observation_type
         self._needs_tactile = env._needs_tactile
         self.frame_skip = env.frame_skip
@@ -106,22 +110,12 @@ class TactilePushLanes:
         return lo + u * (hi - lo)
 
     def _draw(self, what: str, B: int):
-        """All random draws of the env.
+        """All random draws of the env (``tactile_push.draw``).
 
         "reset"       -> (box y (B,), goal (3, B) = [x, y, rot])
         "disturbance" -> (keep_zero (B,) bool, sampled force (2, B))
         """
-        if what == "reset":
-            box_y = self._uniform((B,), -0.02, 0.02)
-            gx = self._uniform((B,), 0.15, 0.25)
-            gy = self._uniform((B,), -0.2, 0.2)
-            rot = gy * math.pi + self._uniform((B,), -math.pi / 16,
-                                               math.pi / 16)
-            return box_y, torch.stack([gx, gy, rot])
-        if what == "disturbance":
-            keep_zero = self._uniform((B,), 0.0, 1.0) >= 0.5
-            return keep_zero, self._uniform((2, B), -1.0, 1.0)
-        raise ValueError(what)
+        return tactile_push.draw(self._uniform, what, B)
 
     # -- api ----------------------------------------------------------------
     def tactile(self, q, v):

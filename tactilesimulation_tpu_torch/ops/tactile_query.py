@@ -20,8 +20,9 @@ Routes:
   ``dense_contact.dense_point_contact_ref``; the forces are summed per row
   and projected onto the sensor axes. It is also the card's comparison.
 
-Used by ``Simulator.tactile`` (the facade's ``get_tactile_force_vector``)
-and the strided rollout's ``fast_tactile`` query. Forward only.
+Used by ``Simulator.tactile`` (the facade's ``get_tactile_force_vector``),
+the strided rollout's ``fast_tactile`` query and the TactilePush env's
+observation, each where ``may_read`` allows it. Forward only.
 """
 
 from __future__ import annotations
@@ -47,6 +48,15 @@ def supported(struct) -> bool:
                 struct.body_gtype[pair.primitive_body] not in ok:
             return False
     return len(struct.tactile_pairs) > 0
+
+
+def may_read(struct, model, *xs) -> bool:
+    """True if the read may serve the field: every tactile pair is
+    point-vs-primitive (``supported``) and no gradient could flow into the
+    state ``xs`` or a model leaf, since the read has no backward. It then
+    launches the read kernel on CUDA tensors and runs its plain version on
+    the CPU."""
+    return supported(struct) and not dynamics.outer_graph(model, *xs)
 
 
 def read_plan(struct, model):

@@ -68,8 +68,9 @@ class Simulator:
         return state
 
     def tactile(self, model: Model, state: SimState):
-        """(ntac * 3,) sensor-frame tactile field at ``state``."""
-        if self._use_fast_tactile(model, state):
+        """(ntac * 3,) sensor-frame tactile field at ``state``: the read's
+        query where ``tactile_query.may_read`` allows it."""
+        if tactile_query.may_read(self.struct, model, state.q, state.qdot):
             return tactile_query.tactile_field(
                 self.struct, model, state.q, state.qdot).reshape(-1)
         return self._tactile_field(model, state.q, state.qdot).reshape(-1)
@@ -83,18 +84,6 @@ class Simulator:
             return dense_single.tactile_field_points_major(
                 self.struct, model, q, qdot)
         return dynamics.tactile_field(self.struct, model, q, qdot)
-
-    def _use_fast_tactile(self, model: Optional[Model] = None,
-                          state: Optional[SimState] = None) -> bool:
-        """The tactile read kernel's query: the model lives on the card and
-        every tactile pair is point-vs-primitive (the counterpart of JAX's
-        "backend is TPU"). The read has no backward, so it never runs where
-        a gradient could flow into ``state`` or the model."""
-        model = self.model if model is None else model
-        if state is not None and dynamics.outer_graph(model, state.q,
-                                                      state.qdot):
-            return False
-        return model.h.is_cuda and tactile_query.supported(self.struct)
 
     # -- rollouts ---------------------------------------------------------
     def make_rollout_dense(self, remat: bool = True,
@@ -141,15 +130,16 @@ class Simulator:
         save_last_frame_var_only). ``remat`` recomputes each chunk in the
         backward.
 
-        ``fast_tactile`` queries the field through the tactile read kernel
-        where the model lives on the card and no gradient can flow
-        (``_use_fast_tactile``); otherwise the field keeps its graph."""
+        ``fast_tactile`` queries the field through the tactile read
+        where ``tactile_query.may_read`` allows it (no gradient can flow);
+        otherwise the field keeps its graph."""
         struct, step = self.struct, self.step
 
         def chunk(model, state, u):
             for _ in range(stride):
                 state = step(model, state, u)
-            if fast_tactile and self._use_fast_tactile(model, state):
+            if fast_tactile and tactile_query.may_read(struct, model, state.q,
+                                                       state.qdot):
                 tac = tactile_query.tactile_field(
                     struct, model, state.q, state.qdot).reshape(-1)
             else:

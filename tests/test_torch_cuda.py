@@ -16,12 +16,14 @@ from chip_smoke import (ACTOR_CFG, ADJ_F64_TOL, K1T_TOL, K1_SCENES,
                         READ_TOL, Smoke, block_chain, contact_state,
                         facade_backward, max_rel, pair_wrench_inputs,
                         read_case)
-from tactilesimulation_tpu_torch.envs import tactile_push_lanes
+from tactilesimulation_tpu_torch import envs
+from tactilesimulation_tpu_torch.algorithms.ppo import PPO
+from tactilesimulation_tpu_torch.envs import tactile_push, tactile_push_lanes
 from tactilesimulation_tpu_torch.model import task_scenes
 from tactilesimulation_tpu_torch.models.nets import DiagGaussianActor
 from tactilesimulation_tpu_torch.ops import (dense_contact, lane_contact,
                                             megastep, tactile_query)
-from tactilesimulation_tpu_torch.sim import dense_single, lanes
+from tactilesimulation_tpu_torch.sim import dense_single, dynamics, lanes
 from tactilesimulation_tpu_torch.sim import simulation
 
 pytestmark = pytest.mark.cuda
@@ -529,3 +531,57 @@ def test_facade_read_sees_update_edits(card):
         assert not np.array_equal(got, prev)
         prev = got
 
+
+
+def test_env_observation_reads_through_the_kernel(card):
+    """The single-instance TactilePush env reads its field through the read
+    kernel under ``no_grad`` (one launch a read), equal to
+    ``dynamics.tactile_field`` in float64; under grad it takes the
+    differentiable field and launches nothing."""
+    env = tactile_push.make("tactile_flatten", device=card,
+                            dtype=torch.float64, seed=1)
+    dense_contact.reset_counts()
+    with torch.no_grad():
+        state, obs = env.reset()
+        for u in ([2.0, 0.3, -0.2], [2.0, -0.1, 0.1], [1.5, 0.0, 0.0]):
+            state, obs, _, _, _ = env.step(
+                state, torch.tensor(u, dtype=torch.float64, device=card))
+    assert (dense_contact.read_launches, dense_contact.launches) == (4, 0)
+    want = dynamics.tactile_field(env.struct, env.model, state.sim.q,
+                                  state.sim.qdot).reshape(-1)
+    scale = float(want.abs().max())
+    assert scale > 0, "the pad never touched the box"
+    assert float((obs[3:] - want).abs().max()) <= (
+        READ_TOL[torch.float64] * scale)
+    dense_contact.reset_counts()
+    u = torch.zeros(3, dtype=torch.float64, device=card, requires_grad=True)
+    _, obs, reward, _, _ = env.step(state, u)
+    (g,) = torch.autograd.grad(reward + obs[3:].sum(), u)
+    assert dense_contact.read_launches == 0
+    assert bool(torch.isfinite(g).all())
+
+
+def test_ppo_update_on_card(card):
+    """One PPO update on TactilePush on the card (N = 2, T = 2): every
+    observation one read launch, finite loss and parameters, the
+    generators on the card."""
+    cfg = {"network": {"actor": "DiagGaussianActor",
+                       "actor_mlp": {"layer_sizes": [64, 64],
+                                     "activation": "elu"},
+                       "actor_logstd_init": 0,
+                       "critic": "MLPCritic",
+                       "critic_mlp": {"layer_sizes": [64, 64],
+                                      "activation": "elu"}},
+           "config": {"num_processes": 2, "num_steps": 2,
+                      "num_env_steps": 4, "num_mini_batch": 2,
+                      "ppo_epoch": 2}}
+    env = envs.make("TactilePush-v1", device=card, dtype=torch.float32)
+    algo = PPO(env, cfg, seed=0)
+    assert algo.act_generator.device.type == "cuda"
+    dense_contact.reset_counts()
+    algo.train()
+    assert dense_contact.read_launches == 2 * (1 + 2)
+    metrics = algo.last_update["metrics"]
+    assert bool(torch.isfinite(metrics).all())
+    assert all(bool(torch.isfinite(p).all()) for p in algo.ac.parameters())
+    assert all(p.is_cuda for p in algo.ac.parameters())
