@@ -127,6 +127,35 @@ seconds):
               PPO_F64_TOL of scale (q, qdot, the tactile_flatten and
               privilege obs, the rewards), float32 held to the CPU float32
               run's distance from float64.
+10. insertion - slice 9, recurrent PPO on TactileInsertion
+              (``envs.make("Insertion-v3")`` in ``TactileInsertionLanes``,
+              ``algorithms.ppo_rnn.PPORNN`` by INS_CFG at its widths, N = 8,
+              f32): (a) a probe (a substep's momentum and chord, a chord
+              factor and a capture at 2N lanes) predicts a script and picks
+              T for INS_BUDGET_S of rollout (at least INS_T_MIN);
+              ``train(stop_update=1)``: K1 = (1 + T) x (10 factors + 45 x
+              11 residuals + 2 captures) and K1T = (1 + T) x 10 x 12
+              launches, the twin and the read kernel never; ms per vector
+              step split into the script, the policy and the
+              normalisation, env steps/s, the update's ms, peak memory,
+              eager ops per script (from the probe's parts), the device's
+              busy share over a substep's chord; finite loss, parameters,
+              rewards and observations, some capture row in contact;
+              (b) at the main run's own states: K1 and K1T (per-lane
+              parameters, 2N lanes, the first vector step's first capture)
+              and their float32 plain versions, each against the float64
+              plain version (INS_K1_F32_VS_F64), and their device times; the first vector step's first substep (its
+              chord factor and chord from its recorded inputs, and its
+              first capture) card against CPU, float64 within INS_F64_TOL,
+              float32 (the main run's own values: K1, K1T) within
+              ROLL_F32_VS_F64 of the CPU float32 run's distance from
+              float64; the vector step around its script (commanded pose,
+              reset draws, outcome, flags, merge) card against CPU in
+              float64, the last lane at the time limit; (c) the settle on
+              INS_SETTLE_CUT, card against CPU in float64; a read plan's
+              build time; then ``play_once`` for INS_PLAY steps: the read
+              kernel 2 per single-instance
+              script, the points entry and K1 never.
 
 The line before the card's line is the kernel table as JSON; the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -259,14 +288,15 @@ ADJ_BUDGET_S = 90.0
 ADJ_F64_TOL = 1e-9
 # the ppo phase: PPO on TactilePush by ppo_tactile.yaml (its nets and
 # N = 8), the rollout cut to the vector steps a probe says fit
-# PPO_BUDGET_S (at least PPO_T_MIN), one update, then play_once for
+# PPO_BUDGET_S (at least PPO_T_MIN; one step on the hosts seen so far, to
+# leave room for the insertion phase), one update, then play_once for
 # PPO_PLAY steps; card against CPU over PPO_CROSS_US from a seeded reset
 # (the pad reaches the box by the third step), float64 to PPO_F64_TOL of
 # scale (the same algorithm to round-off), float32 held to the CPU float32
 # run's distance from float64 (ROLL_F32_VS_F64)
-PPO_BUDGET_S = 90.0
-PPO_T_MIN = 2
-PPO_PLAY = 3
+PPO_BUDGET_S = 45.0
+PPO_T_MIN = 1
+PPO_PLAY = 1
 PPO_CROSS_US = ((2.0, 0.3, -0.2), (2.0, -0.1, 0.1), (1.5, 0.0, 0.0))
 PPO_F64_TOL = 1e-9
 # the PPO run's float32 reads against the float64 plain version (the same
@@ -282,6 +312,39 @@ PPO_F64_TOL = 1e-9
 # rounding (the kernel's error was 0.87, 1.39, 2.08 and 2.12 x the plain
 # version's in four runs on the card)
 PPO_READ_F32_VS_F64 = (3.0, 1e-5)
+# the insertion phase: recurrent PPO on TactileInsertion by INS_CFG (its
+# nets, N = 8, f32) through the lane-major vec env, the rollout cut to the
+# vector steps a probe says fit INS_BUDGET_S (at least INS_T_MIN), one
+# update, then play_once for INS_PLAY steps (a step of the single-instance
+# env is a ~1 minute script on the card's host: the whole script must stay
+# under the 1,200 s limit on the slowest host). A script is 45 stiff substeps of a
+# chord that refreshes its Jacobian every 5 and does not converge in its
+# 10 sweeps; its discrete choices (the best iterate, frozen lanes) flip
+# under round-off, and many lanes throw the box off the pads, so whole
+# scripts part lane by lane at round-off (the JAX lanes env runs the same
+# algorithm). The card is therefore held to the CPU per substep, at the
+# main run's own recorded inputs: one chord factor, one chord and one
+# capture, float64 (the plain lane contact: K1 has no float64 instance)
+# within INS_F64_TOL of scale, float32 (K1, K1T) within ROLL_F32_VS_F64 of
+# the CPU float32 run's distance from float64; the vector step around its
+# script and the settle on INS_SETTLE_CUT (ramps, hold) in float64 within
+# INS_F64_TOL
+INS_BUDGET_S = 60.0
+INS_T_MIN = 1
+INS_PLAY = 1
+INS_F64_TOL = ADJ_F64_TOL
+# K1 and K1T at the path's own state, held as the PPO run's reads are
+# (PPO_READ_F32_VS_F64): the pads' light contact takes its depth from a
+# difference of near-equal coordinates, and the kernel (the box's matrix)
+# and the plain version (quat_rotate) round it apart, so neither is held
+# to the other row by row; each is held to the float64 plain version, the
+# kernel within 3 x the float32 plain version's distance + K1_TOL of
+# scale (K1T_TOL["rel"] for K1T). On the card (NVIDIA H100 80GB HBM3,
+# 700.00 W) the kernels phase's rule failed here: the kernel 3.1e-5 of the
+# tactile rows' scale off the float32 plain version on a lane where that
+# version is within 1e-5 of float64, which parts by 2.0e-5 on another
+INS_K1_F32_VS_F64 = 3.0
+INS_SETTLE_CUT = ((2, 2, 2), 2)
 MEGA = "tactilesimulation_tpu_torch/csrc/megastep.cu"
 LANE = "tactilesimulation_tpu_torch/csrc/lane_contact.cu"
 DENSE = "tactilesimulation_tpu_torch/csrc/dense_contact.cu"
@@ -305,6 +368,9 @@ KERNELS = [dict(name="K1 lane_contact", key="K1", lib="lane_contact",
                 replaces="tactilesimulation_tpu/ops/dense_contact.py:174")]
 PPO_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "examples", "TactilePushExp", "cfg", "ppo_tactile.yaml")
+INS_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "examples", "TactileInsertionExp", "cfg",
+                       "tactile_insertion_trans_and_rot.yaml")
 GD_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
                       "TactilePushExp", "cfg", "gd_tactile.yaml")
 
@@ -714,6 +780,78 @@ def device_ms(fn, iters, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def insertion_env(dev, dtype):
+    """The single-instance env of INS_CFG on ``dev`` in ``dtype``, and the
+    cfg's ``params``."""
+    import yaml
+    from tactilesimulation_tpu_torch import envs
+    with open(INS_CFG) as fp:
+        cfg = yaml.safe_load(fp)["params"]
+    kw = dict(cfg["env"])
+    name = kw.pop("name")
+    kw.pop("lane_vec", None)
+    return envs.make(name, device=dev, dtype=dtype, seed=0, **kw), cfg
+
+
+def insertion_lanes(dev, dtype):
+    """The lane env of INS_CFG on ``dev`` in ``dtype``: K1 on the card in
+    float32, the plain lane contact otherwise (K1 has no float64
+    instance)."""
+    from tactilesimulation_tpu_torch.envs.tactile_insertion_lanes import \
+        TactileInsertionLanes
+    return TactileInsertionLanes(insertion_env(dev, dtype)[0],
+                                 fused="auto" if dtype == torch.float32
+                                 else False)
+
+
+def insertion_settle(dev):
+    """The insertion scene's settle on INS_SETTLE_CUT, float64."""
+    from tactilesimulation_tpu_torch.envs import tactile_insertion
+    from tactilesimulation_tpu_torch.model import task_scenes
+    struct, model = task_scenes.tactile_insertion()
+    stages, hold = INS_SETTLE_CUT
+    return tactile_insertion.settle(struct, model.to(dev, torch.float64),
+                                    stages=stages, hold=hold).cpu()
+
+
+def insertion_outputs(out, final_q):
+    """{name: float64 CPU tensor} of a ``vec_step_autoreset`` output and
+    its execution's final q (the step side's lanes)."""
+    st, obs, t, reward, done, bad, success = out
+    B = obs.shape[0]
+    res = {"obs": obs, "reward": reward, "final_q": final_q[:, :B],
+           "t": t, "done": done, "bad": bad, "success": success}
+    for f in dataclasses.fields(st):
+        res[f"state.{f.name}"] = getattr(st, f.name)
+    return {k: v.detach().double().cpu() for k, v in res.items()}
+
+
+def insertion_substep(lenv, inputs, v0, capture):
+    """The first substep of a lane script from the main run's recorded
+    inputs, on ``lenv``'s device and dtype: the chord factor at (inputs,
+    v0), the chord from it, and the capture at the main run's recorded
+    (model, q, v) -> {name: float64 CPU tensor}."""
+    from tactilesimulation_tpu_torch.envs import tactile_insertion_lanes
+    from tactilesimulation_tpu_torch.sim import lanes
+    dev, dtype = lenv.device, lenv.dtype
+    to = lambda x: x.to(dev, dtype)
+    inputs = lanes.StepInputs(model=inputs.model.to(dev, dtype),
+                              u=to(inputs.u), q_base=to(inputs.q_base),
+                              p_base=to(inputs.p_base),
+                              gamma=to(inputs.gamma))
+    v0 = to(v0)
+    with torch.no_grad():
+        lu = lanes.make_chord_lu(lenv._residual, inputs, v0)
+        v = lanes._chord(lenv._residual, lenv.max_iter,
+                         tactile_insertion_lanes.chord_tol(lenv.struct,
+                                                           dtype),
+                         inputs, v0, lu)
+        model, q, qd = capture
+        field = lenv._tactile(model.to(dev, dtype), to(q), to(qd))
+    return {k: x.detach().double().cpu()
+            for k, x in (("factor", lu), ("v", v), ("capture", field))}
 
 
 class Smoke:
@@ -2356,6 +2494,443 @@ class Smoke:
         if bad:
             raise AssertionError(f"TactilePush env, card vs CPU: {bad}")
 
+    def insertion(self, dev):
+        """Slice 9: recurrent PPO on TactileInsertion through the lane-major
+        vec env (K1 with per-lane contact parameters, K1T in every chord
+        factor): (a) the main path, its update here and its play_once at
+        the end; (b) at the main run's own states: K1 and K1T against their
+        plain versions; the first vector step's first substep (chord
+        factor, chord, a capture) card against CPU; the vector step around
+        its script card against CPU; (c) the cut settle, card against
+        CPU."""
+        run = self.insertion_train(dev)
+        self.insertion_k1(dev, run)
+        self.insertion_substep_check(dev, run)
+        self.insertion_bookkeeping(dev, run)
+        e = max_rel({"q": insertion_settle(dev)},
+                    {"q": insertion_settle(torch.device("cpu"))})["q"]
+        print(f"  (c) settle {INS_SETTLE_CUT} f64, card vs cpu {e:.3e} (tol "
+              f"{INS_F64_TOL:g})")
+        if not e <= INS_F64_TOL:
+            raise AssertionError("insertion, the cut settle: card vs CPU")
+        print(f"  a read plan for a new episode's model (domain "
+              f"randomisation) {self.insertion_read_plan(dev):.3f} ms "
+              f"[{self.card}]")
+        self.insertion_play(dev, run)
+
+    @staticmethod
+    def insertion_read_plan(dev):
+        """ms to build the read kernel's plan for a model with new contact
+        parameters (the single-instance route rebuilds it every episode)."""
+        from tactilesimulation_tpu_torch.ops import dense_contact
+        env, _ = insertion_env(dev, torch.float32)
+        s = env._sample_reset(1)
+        models = [env._model_for({k: v[0].clone() for k, v in s.items()})
+                  for _ in range(5)]
+        dense_contact.ReadPlan(env.struct, models[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for m in models[1:]:
+            dense_contact.ReadPlan(env.struct, m)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 4 * 1e3
+
+    def insertion_k1(self, dev, run):
+        """(b) K1 and K1T at this path's shapes and state: the main run's
+        first capture of its first vector step (2N lanes, per-lane
+        parameters (K + S, 4, 2N)). K1 and K1T (float32) and the float32
+        plain version and its VJP are each held to the float64 plain
+        version and its VJP on the same inputs, per output and per
+        cotangent: the kernel's max abs error over the output's scale
+        within INS_K1_F32_VS_F64 x the float32 plain version's + K1_TOL
+        (K1T_TOL["rel"] for K1T); two launches bit-equal; their device
+        times."""
+        from tactilesimulation_tpu_torch.ops import lane_contact
+        from tactilesimulation_tpu_torch.sim import contact, lanes
+        pw, struct = run["pw"], run["lenv"].struct
+        model, q, v = (x.to("cpu", torch.float64) for x in run["capture"])
+        with torch.no_grad():
+            jp, jq, bp, bquat, _, _, _, Om, be = lanes._fused_small_stage(
+                struct, model, q, v)
+            a64 = [jp, jq, Om, be, bp, bquat, model.body_size,
+                   contact.combined_params(model), model.ground_pos,
+                   model.ground_normal,
+                   lane_contact.pack_points(struct, model,
+                                            lanes._tables(struct, q).src_idx)]
+        a64 = [x.contiguous() for x in a64]
+        B = q.shape[-1]
+        cots64 = [torch.as_tensor(np.random.RandomState(2).randn(3, n, B))
+                  for n in (pw.J, pw.J, pw.ntac)]
+
+        def plain(args, cots):
+            ins = [x.detach().requires_grad_() for x in args]
+            outs = pw.reference(*ins)
+            live = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+            return [o.detach() for o in outs] + list(torch.autograd.grad(
+                [o for o, _ in live], ins, [c for _, c in live],
+                allow_unused=True))
+
+        f32 = lambda xs: [x.to(dev, torch.float32).contiguous() for x in xs]
+        a, cots = f32(a64), f32(cots64)
+        if a[7].dim() != 3 or a[7].shape[-1] != B:
+            raise AssertionError(f"parameters {tuple(a[7].shape)}: not per "
+                                 "lane")
+        with torch.no_grad():
+            runs = [list(pw.run_kernel(*a))
+                    + list(pw.run_adjoint(a, cots, (True,) * 11))
+                    for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(*runs)):
+            raise AssertionError("K1/K1T at the path's state: two launches "
+                                 "differ")
+        names = ["F", "Tau", "tac"] + list(lane_contact._ARG_NAMES)
+        mult, bad, rows = INS_K1_F32_VS_F64, [], []
+        for i, (name, k, p, w) in enumerate(zip(names, runs[0],
+                                                plain(a, cots),
+                                                plain(a64, cots64))):
+            what = ("K1 " if i < 3 else "K1T ") + name
+            if w is None:
+                if float(k.abs().max()) != 0.0:
+                    bad.append(f"{what} not 0")
+                continue
+            scale = max(float(w.abs().max()), 1e-300)
+            ek = float((k.double().cpu() - w).abs().max()) / scale
+            ep = float((p.double().cpu() - w).abs().max()) / scale
+            allowed = mult * ep + (K1_TOL if i < 3 else K1T_TOL["rel"])
+            rows.append(f"{what} {ek:.2e}/{ep:.2e}")
+            if not ek <= allowed:
+                bad.append(f"{what}: {ek:.3e} > {mult:g} x {ep:.3e} + floor")
+        print(f"  (b) K1/K1T at the path's state ({B} lanes, per-lane "
+              f"parameters {tuple(a[7].shape)}), kernel/plain f32 error "
+              f"over scale from f64 (tol {mult:g} x plain + {K1_TOL:g} / "
+              f"{K1T_TOL['rel']:g}): " + ", ".join(rows))
+        if float(runs[0][0].abs().max()) <= 1e-3:
+            bad.append("no active contact")
+        if bad:
+            raise AssertionError(f"K1/K1T at the insertion path's state: "
+                                 f"{bad}")
+        need = (True,) * 6 + (False,) * 5      # what a chord factor asks
+        with torch.no_grad():
+            k_ms = device_ms(lambda: pw.run_kernel(*a), 50)
+            kt_ms = device_ms(lambda: pw.run_adjoint(a, cots, need), 50)
+        k1_script, k1t_script = run["lenv"].launches_per_script()
+        print(f"  (b) K1 at this path's shapes {k_ms:.4f} ms on the device, "
+              f"K1T (a factor's cotangents) {kt_ms:.4f} ms: "
+              f"{k1_script * k_ms + k1t_script * kt_ms:.1f} ms of a "
+              f"{run['script_s'] * 1e3:.0f} ms script [{self.card}]")
+
+    def insertion_substep_check(self, dev, run):
+        """(b) The first vector step's first substep, from the inputs the
+        main run recorded: its chord factor and chord, and its first
+        capture. The card's float32 values are the main run's own (K1,
+        K1T); the card's float64 run and the CPU's float32 and float64 runs
+        recompute them (the plain lane contact); ``_card_vs_cpu``'s rule:
+        float64 within ADJ_F64_TOL (INS_F64_TOL), float32 within
+        ROLL_F32_VS_F64 of the CPU float32 run's distance from float64."""
+        inputs, v0, lu, v = run["chord"]
+        model, q, qd, field = run["capture"] + (run["field"],)
+        runs = {("cuda", torch.float32): {
+            k: x.detach().double().cpu()
+            for k, x in (("factor", lu), ("v", v), ("capture", field))}}
+        for where, d, dtype in (("cuda", dev, torch.float64),
+                                ("cpu", "cpu", torch.float64),
+                                ("cpu", "cpu", torch.float32)):
+            lenv = insertion_lanes(torch.device(d), dtype)
+            runs[(where, dtype)] = insertion_substep(lenv, inputs, v0,
+                                                     (model, q, qd))
+        self._card_vs_cpu(runs, "(b) the first substep")
+
+    def insertion_bookkeeping(self, dev, run):
+        """(b) The first vector step around its script (the action's
+        commanded pose, the reset side's draws, the outcome, the flags and
+        the merge), card against CPU in float64 within INS_F64_TOL of each
+        output's scale (the flags equal): the main run's state, draws and
+        action, its script's outputs in place of the script, and the last
+        lane at max_episode_steps - 1, so that it ends by the time
+        limit."""
+        st, obs0, t, action = run["step_in"]
+        final_q, obs_all = run["step_script"]
+        draws = run["step_draws"]
+        outs = {}
+        for where, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            lenv = insertion_lanes(d, torch.float64)
+            to = lambda x: x.to(d, torch.float64)
+            it = iter(draws)
+
+            def injected(what, B, it=it, to=to):
+                want, value = next(it)
+                if want != what:
+                    raise AssertionError(f"draw {what}, expected {want}")
+                if isinstance(value, dict):
+                    return {k: None if x is None else to(x)
+                            for k, x in value.items()}
+                return to(value)
+
+            lenv.env._draw = injected
+            lenv._lane_execute = lambda *_, to=to: (to(final_q), to(obs_all))
+            t_end = t.clone()
+            t_end[-1] = lenv.max_episode_steps - 1
+            st_d = dataclasses.replace(st, **{
+                f.name: to(getattr(st, f.name))
+                for f in dataclasses.fields(st)})
+            outs[where] = insertion_outputs(lenv.vec_step_autoreset(
+                st_d, to(obs0), t_end.to(d), to(action)), final_q)
+        e = max_rel(outs["cuda"], outs["cpu"])
+        flags = ("t", "done", "bad", "success")
+        bad = [k for k, x in e.items()
+               if not (x == 0 if k in flags else x <= INS_F64_TOL)]
+        worst = max(x for k, x in e.items() if k not in flags)
+        print(f"  (b) the first vector step around its script, card vs cpu "
+              f"f64: worst {worst:.3e} (tol {INS_F64_TOL:g}), flags equal: "
+              f"{all(e[k] == 0 for k in flags)}; done "
+              f"{outs['cpu']['done'].int().tolist()} (the last lane at the "
+              f"time limit)")
+        if not bool(outs["cpu"]["done"][-1]):
+            bad.append("the last lane did not end at the time limit")
+        if bad:
+            raise AssertionError(f"insertion bookkeeping, card vs CPU: {bad}")
+
+    def insertion_train(self, dev):
+        """(a) PPO-RNN by INS_CFG at its widths through the lane env on the
+        card, up to its first update: a probe picks T; launches, times,
+        ops, busy share. Returns the run's record for (b) and play_once:
+        the trainer, the lane env, the first vector step's input state,
+        draws and script outputs, its first chord's inputs and outputs and
+        its first capture's."""
+        import copy
+        from tactilesimulation_tpu_torch.algorithms.ppo_rnn import PPORNN
+        from tactilesimulation_tpu_torch.envs import tactile_insertion as ti
+        from tactilesimulation_tpu_torch.envs.tactile_insertion_lanes import (
+            TactileInsertionLanes, chord_tol)
+        from tactilesimulation_tpu_torch.ops import dense_contact
+        from tactilesimulation_tpu_torch.sim import lanes
+        env, cfg = insertion_env(dev, torch.float32)
+        conf = cfg["config"]
+        N = conf["num_processes"]
+        lenv = TactileInsertionLanes(env)
+        pw = lenv.pair_wrenches
+        if pw is None:
+            raise AssertionError("the card's lane env did not take K1")
+        k1_script, k1t_script = lenv.launches_per_script()
+        struct, S1 = env.struct, len(env.capture_frames)
+
+        # probe at a vector step's 2N lanes: a substep's momentum and
+        # chord (r0 + max_iter residuals), a chord factor and a capture;
+        # a script is 45 substeps, 1 + ceil(45 / refresh) factors and S + 1
+        # captures. Its draws go before PPORNN reseeds the generator
+        with torch.no_grad():
+            s = env._sample_reset(2 * N)
+            model = lenv._batched_model({k: s[k].T for k in ti.DR_NAMES})
+            q = s["q_cmd"].T.contiguous()
+            v = torch.zeros_like(q)
+            inputs = lanes.StepInputs(
+                model=model, u=q[:6].contiguous(), q_base=q,
+                p_base=lanes.momentum(struct, model, q, v),
+                gamma=model.h.reshape(1, 1))
+            tol = chord_tol(struct, torch.float32)
+            lu = lanes.make_chord_lu(lenv._residual, inputs, v)
+            parts = {
+                "momentum": lambda: lanes.momentum(struct, model, q, v),
+                "chord": lambda: lanes._chord(lenv._residual, lenv.max_iter,
+                                              tol, inputs, v, lu),
+                "factor": lambda: lanes.make_chord_lu(lenv._residual,
+                                                      inputs, v),
+                "capture": lambda: lenv._tactile(model, q, v)}
+            ms, ops = {}, {}
+            for k, fn in parts.items():
+                ms[k] = cuda_ms(fn, 2, warmup=1)
+                with AtenCount() as count:
+                    fn()
+                ops[k] = count.n
+        factors = k1t_script // struct.ndof_q
+        per_script = lambda d: (45 * (d["momentum"] + d["chord"])
+                                + factors * d["factor"]
+                                + S1 * d["capture"])
+        script_s = per_script(ms) / 1e3
+        T = min(conf["num_steps"],
+                max(INS_T_MIN, int(INS_BUDGET_S / script_s)))
+        print(f"  probe at {2 * N} lanes: momentum {ms['momentum']:.1f} ms, "
+              f"chord (r0 + {lenv.max_iter} sweeps) {ms['chord']:.1f} ms, "
+              f"factor ({struct.ndof_q} pullbacks) {ms['factor']:.1f} ms, "
+              f"capture {ms['capture']:.2f} ms: a script about "
+              f"{script_s:.1f} s; {INS_BUDGET_S:.0f} s of rollout fit T = "
+              f"{T} [{self.card}]")
+        print(f"  eager aten ops: momentum {ops['momentum']}, chord "
+              f"{ops['chord']}, factor {ops['factor']}, capture "
+              f"{ops['capture']}: {per_script(ops)} per script (a vector "
+              f"step, 45 x (momentum + chord) + {factors} factors + {S1} "
+              f"captures)")
+        with torch.no_grad():
+            self.device_share(parts["chord"], "one substep's chord "
+                              f"({2 * N} lanes)")
+
+        c = copy.deepcopy(cfg)
+        c["config"].update(num_steps=T, num_env_steps=N * T)
+        algo = PPORNN(lenv, c, seed=0)
+        net = cfg["network"]
+        print(f"  CUT: num_steps {conf['num_steps']} -> {T}, num_env_steps "
+              f"{conf['num_env_steps']} -> {N * T} (one update), play_once "
+              f"for up to {INS_PLAY} steps; kept: N = {N}, ppo_epoch "
+              f"{algo.ppo_epoch}, num_mini_batch {algo.num_mini_batch}, obs "
+              f"{env.obs_size()}, CNN {net['feature_cnn']['kernel_sizes']} "
+              f"x {net['feature_cnn']['layer_sizes']} -> "
+              f"{net['feature_cnn']['hidden_size']}, GRU "
+              f"{net['rnn_hidden_layers']} x {net['rnn_hidden_size']}, "
+              f"actor and critic {net['actor_mlp']['layer_sizes']} "
+              f"{net['actor_mlp']['activation']}, domain randomisation "
+              f"{env.domain_randomization}, rotation {env.allow_rotation}")
+        # kept from the run without an op added: the captures (whether
+        # some row is in contact), and of the first vector step its input
+        # state, draws, script outputs, first chord and first capture
+        run = {"algo": algo, "lenv": lenv, "pw": pw, "T": T,
+               "script_s": script_s, "fields": [], "draws": []}
+        tactile, execute, draw = lenv._tactile, lenv._lane_execute, env._draw
+        step, chord = lenv.vec_step_autoreset, lanes._chord
+        in_step = lambda: "step_in" in run and "step_script" not in run
+
+        def keep_tactile(*args):
+            field = tactile(*args)
+            run["fields"].append(field)
+            if in_step() and "capture" not in run:
+                run["capture"], run["field"] = args, field
+            return field
+
+        def keep_chord(residual, max_iter, tol, inputs, v0, lu):
+            v = chord(residual, max_iter, tol, inputs, v0, lu)
+            if in_step() and "chord" not in run:
+                run["chord"] = (inputs, v0, lu, v)
+            return v
+
+        def keep_draw(what, B):
+            value = draw(what, B)
+            if "step_script" not in run:
+                run["draws"].append((what, value))
+            return value
+
+        def keep_execute(*args):
+            out = execute(*args)
+            if in_step():
+                run["step_script"] = out
+            return out
+
+        def keep_step(st, obs, t, action):
+            if "step_in" not in run:
+                run["step_in"] = (st, obs, t, action)
+            return step(st, obs, t, action)
+
+        lenv._tactile, lenv._lane_execute = keep_tactile, keep_execute
+        env._draw, lenv.vec_step_autoreset = keep_draw, keep_step
+        lanes._chord = keep_chord
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        pw.reset_counts()
+        dense_contact.reset_counts()
+        t0 = time.perf_counter()
+        try:
+            algo.train(stop_update=1)
+            torch.cuda.synchronize()
+        finally:
+            lanes._chord = chord
+            env._draw, lenv.vec_step_autoreset = draw, step
+            lenv._tactile, lenv._lane_execute = tactile, execute
+        wall = time.perf_counter() - t0
+        k1, k1t = pw.launches, pw.bwd_launches
+        twin = pw.twin_vjps + pw.twin_recomputes
+        reads, points = dense_contact.read_launches, dense_contact.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        run["step_draws"] = run["draws"][2:]   # vec_reset took the first 2
+        scripts = 1 + T
+        want = (scripts * k1_script, scripts * k1t_script)
+        print(f"  launches: K1 {k1}, K1T {k1t} (want {scripts} scripts x "
+              f"({k1_script}, {k1t_script}) = {want}: per script "
+              f"{factors} factors + 45 x (1 + {lenv.max_iter}) residuals + "
+              f"{S1} captures, and {struct.ndof_q} pullbacks a factor); "
+              f"twin {twin} (want 0)")
+        if (k1, k1t) != want or twin:
+            raise AssertionError("the insertion update did not run through "
+                                 "K1/K1T as counted")
+        for key, n in (("K1", k1), ("K1T", k1t)):
+            row = self.kernel_rows.setdefault(key, {})
+            row["launches"] = row.get("launches", 0) + n
+
+        last_u = algo.last_update
+        rollout_s, update_s = last_u["rollout_s"], last_u["update_s"]
+        metrics, raw_r = last_u["metrics"], last_u["raw_rewards"]
+        vec = last_u["vec"]
+        print(f"  PPO-RNN TactileInsertion f32, N = {N}, T = {T}: "
+              f"train(stop_update=1) {wall:.2f} s (the vec_reset's script "
+              f"{wall - rollout_s - update_s:.2f} s); rollout "
+              f"{rollout_s:.3f} s, {rollout_s / T * 1e3:.1f} ms per vector "
+              f"step: the script {last_u['env_s'] / T * 1e3:.1f} ms, the "
+              f"policy {last_u['act_s'] / T * 1e3:.2f} ms, the "
+              f"normalisation {last_u['norm_s'] / T * 1e3:.3f} ms; "
+              f"{N * T / rollout_s:.4f} env steps/s; update "
+              f"{update_s * 1e3:.1f} ms ({algo.ppo_epoch} x "
+              f"{algo.num_mini_batch} minibatches of "
+              f"{N // algo.num_mini_batch} env x {T} steps); peak memory "
+              f"{peak / 2**20:.1f} MiB, {(peak - base) / 2**20:.1f} MiB "
+              f"above what was allocated before [{self.card}]")
+        print(f"  loss {float(metrics[0]):.5f}, action loss "
+              f"{float(metrics[1]):.5f}, value loss {float(metrics[2]):.5f}, "
+              f"entropy {float(metrics[3]):.4f}; mean reward "
+              f"{float(raw_r.mean()):.4f}")
+        params = list(algo.ac.parameters())
+        if not (bool(torch.isfinite(metrics).all())
+                and all(bool(torch.isfinite(p).all()) for p in params)
+                and bool(torch.isfinite(raw_r).all())
+                and bool(torch.isfinite(vec.obs).all())):
+            raise AssertionError("non-finite loss, parameters, rewards or "
+                                 "observations")
+        normal = torch.cat([f[:, 2].abs().amax(dim=0)
+                            for f in run["fields"]])   # per capture, lane
+        final_q = run["step_script"][0]
+        flown = int((final_q.abs().amax(dim=0) > 1.0).sum())
+        print(f"  captures of the run: {int((normal > 0).sum())} of "
+              f"{normal.numel()} (capture, lane) pairs with a marker in "
+              f"contact, |normal| up to {float(normal.max()):.3e} N; in the "
+              f"first vector step {flown} of {final_q.shape[1]} lanes end "
+              f"with some |q| > 1 (the box thrown off the pads)")
+        if not bool((normal > 0).any()):
+            raise AssertionError("no capture row in contact")
+        if reads or points:
+            raise AssertionError(f"the lane path launched the read kernel "
+                                 f"({reads}, points entry {points})")
+        del run["fields"]
+        return run
+
+    def insertion_play(self, dev, run):
+        """(a) play_once for INS_PLAY steps, the single-instance env (K4R
+        reads its captures); the read kernel's launches, counted from 0
+        around it."""
+        from tactilesimulation_tpu_torch.ops import dense_contact
+        algo, env = run["algo"], run["lenv"].env
+        S1 = len(env.capture_frames)
+        env.max_episode_steps, full = INS_PLAY, env.max_episode_steps
+        dense_contact.reset_counts()
+        run["pw"].reset_counts()
+        t1 = time.perf_counter()
+        try:
+            ret, success, _, played, extra = algo.play_once()
+        finally:
+            env.max_episode_steps = full
+        torch.cuda.synchronize()
+        play_s = time.perf_counter() - t1
+        reads, points = dense_contact.read_launches, dense_contact.launches
+        lane = run["pw"].launches + run["pw"].bwd_launches
+        want = (1 + played) * S1
+        print(f"  play_once {played} steps {play_s:.1f} s: return "
+              f"{ret:.4f}, success {success}, class counts "
+              f"{extra['class_cnt'].tolist()}; read kernel {reads} (want "
+              f"{want}: {1 + played} single-instance scripts x {S1} "
+              f"captures); points entry {points}, K1/K1T {lane} (want 0) "
+              f"[{self.card}]")
+        if reads != want or points or lane or not math.isfinite(ret):
+            raise AssertionError("play_once did not read through K4R as "
+                                 "counted, or its return is not finite")
+        row = self.kernel_rows.setdefault("K4R", {})
+        row["launches"] = row.get("launches", 0) + reads
+
     def _card_vs_cpu(self, runs, what):
         """Card float64 within ADJ_F64_TOL of the CPU's; card float32 within
         ROLL_F32_VS_F64 of the CPU float32 run's distance from float64."""
@@ -2403,6 +2978,7 @@ def main() -> int:
         s.phase("rolling", s.rolling, dev)
         s.phase("adjoint", s.adjoint, dev)
         s.phase("ppo", s.ppo, dev)
+        s.phase("insertion", s.insertion, dev)
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failed:
         print(f"FAILED phases: {s.failed}")

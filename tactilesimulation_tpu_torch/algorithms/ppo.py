@@ -12,7 +12,8 @@ algorithms/ppo.py + pytorch-a2c-ppo-acktr-gail):
   (VecNormalize): each step normalises with the statistics from before
   its own update, and the return accumulator is zeroed on ``done`` after
   the return statistics take it;
-- auto-reset vector env (SubprocVecEnv semantics);
+- auto-reset vector env (SubprocVecEnv semantics), or the env's own
+  batched ``vec_reset``/``vec_step_autoreset`` where it has them;
 - interval checkpoints with the full training state, ``resume``,
   ``save``/``load`` and ``play_once``.
 
@@ -144,10 +145,18 @@ class VecEnv:
         """-> (vec', reward (N,), done (N,), bad (N,)): ``done`` marks an
         episode's end (done or truncated), ``bad`` one cut by the time
         limit alone."""
+        return self.step_success(vec, actions)[:4]
+
+    def step_success(self, vec: VecEnvState, actions):
+        """``step``'s outputs and success (N,): each step's
+        ``info["success"]`` (False where the env reports none)."""
         env = self.env
-        outs = [env.step(tree_index(vec.env_states, i), actions[i])[:4]
+        outs = [env.step(tree_index(vec.env_states, i), actions[i])
                 for i in range(self.num_envs)]
-        states, obs, rewards, dones = (list(x) for x in zip(*outs))
+        states, obs, rewards, dones, infos = (list(x) for x in zip(*outs))
+        success = torch.stack([torch.as_tensor(i.get("success", False),
+                                               device=rewards[0].device)
+                               for i in infos])
         t = vec.t + 1
         done = torch.stack(dones).cpu()
         truncated = t >= env.max_episode_steps
@@ -159,29 +168,45 @@ class VecEnv:
         return (VecEnvState(env_states=tree_stack(states),
                             obs=tree_stack(obs), t=t),
                 torch.stack(rewards), ended.to(dev),
-                (truncated & ~done).to(dev))
+                (truncated & ~done).to(dev), success)
 
 
 class PPO:
+    """PPO over a vector env. ``PPORNN`` (``ppo_rnn.py``) is this trainer
+    with a recurrent policy: it overrides the net, the rollout, the update
+    and ``play_once``, and the figures that select the best model; the
+    config, the generators, the optimizer, the normalisers, the train loop,
+    the checkpoints and ``resume`` are these."""
+
+    # the config defaults that differ between the trainers
+    DEFAULTS = {"num_steps": 1024, "num_env_steps": 2_000_000,
+                "num_mini_batch": 32}
+    # an interval model's name tag, from the score; episodes the score
+    # needs before it selects the best model
+    SCORE_TAG = "reward{:.1f}"
+    MIN_EPISODES = 1
+
     def __init__(self, env, cfg: Dict[str, Any], logdir: Optional[str] = None,
                  seed: int = 0):
-        """env: a ``FunctionalEnv``; cfg: the YAML ``params`` dict
-        (``config``, ``network`` and optionally ``general`` sections)."""
+        """env: a ``FunctionalEnv``, or a vec env with ``vec_reset`` and
+        ``vec_step_autoreset`` (``.env`` its single instance); cfg: the
+        YAML ``params`` dict (``config``, ``network`` and optionally
+        ``general`` sections)."""
         self.env = env
         self.cfg = cfg
-        config = cfg.get("config", {})
+        config = {**self.DEFAULTS, **cfg.get("config", {})}
         network = cfg.get("network", {})
         self.logdir = logdir
         self.seed = seed
         self.device, self.dtype = env.device, env.dtype
 
         self.num_processes = config.get("num_processes", 8)
-        self.num_steps = config.get("num_steps", 1024)
-        self.num_env_steps = config.get("num_env_steps", 2_000_000)
+        self.num_steps = config["num_steps"]
+        self.num_env_steps = config["num_env_steps"]
         self.lr = config.get("lr", 3e-4)
         self.clip_param = config.get("clip_param", 0.2)
         self.ppo_epoch = config.get("ppo_epoch", 10)
-        self.num_mini_batch = config.get("num_mini_batch", 32)
+        self.num_mini_batch = config["num_mini_batch"]
         self.value_loss_coef = config.get("value_loss_coef", 0.5)
         self.entropy_coef = config.get("entropy_coef", 0.0)
         self.max_grad_norm = config.get("max_grad_norm", 0.5)
@@ -200,22 +225,17 @@ class PPO:
         self.num_updates = self.num_env_steps // (
             self.num_steps * self.num_processes)
         self._resume_blob = None
-        self.vec_env = VecEnv(env, self.num_processes)
+        # the env's own batched step where it has one (the JAX package's
+        # ``fused_vec`` branch), else its single instances one by one
+        self.fused_vec = hasattr(env, "vec_step_autoreset")
+        self.vec_env = None if self.fused_vec else VecEnv(env,
+                                                          self.num_processes)
 
-        # the obs tree (a vector, or a tuple such as tactile_map's (image,
-        # state)) from one reset, with the env's generator put back
-        saved = env.generator.get_state()
-        with torch.no_grad():
-            dummy_obs = env.reset()[1]
-        env.generator.set_state(saved)
+        dummy_obs = self._dummy_obs()
         obs_shape = _obs_map(lambda o: tuple(o.shape), dummy_obs)
-
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            self.ac = nets.ActorCritic(
-                obs_shape, env.ndof_u, network,
-                network.get("actor", "DiagGaussianActor"),
-                network.get("critic", "MLPCritic"))
+            self.ac = self._make_net(obs_shape, network)
         self.ac.to(self.device, self.dtype)
         s_env, s_act, s_perm = (int(s) for s in np.random.SeedSequence(
             seed).generate_state(3))
@@ -238,12 +258,62 @@ class PPO:
         self.last_update = {}
         self.rollout_split = {}
 
-    # ------------------------------------------------------------------
+    def _dummy_obs(self):
+        """The obs tree (a vector, or a tuple such as tactile_map's (image,
+        state)) from one reset, with the env's generator put back."""
+        saved = self.env.generator.get_state()
+        with torch.no_grad():
+            dummy_obs = self.env.reset()[1]
+        self.env.generator.set_state(saved)
+        return dummy_obs
+
+    def _make_net(self, obs_shape, network):
+        return nets.ActorCritic(obs_shape, self.env.ndof_u, network,
+                                network.get("actor", "DiagGaussianActor"),
+                                network.get("critic", "MLPCritic"))
+
+    # -- the vector env ----------------------------------------------------
+    def vec_reset(self) -> VecEnvState:
+        if not self.fused_vec:
+            return self.vec_env.reset()
+        states, obs = self.env.vec_reset(self.num_processes)
+        return VecEnvState(env_states=states, obs=obs,
+                           t=torch.zeros(self.num_processes,
+                                         dtype=torch.int64,
+                                         device=self.device))
+
+    def vec_step(self, vec: VecEnvState, action):
+        """-> (vec', reward, done, bad, success), each (N,)."""
+        if not self.fused_vec:
+            return self.vec_env.step_success(vec, action)
+        st, obs, t, reward, done, bad, success = self.env.vec_step_autoreset(
+            vec.env_states, vec.obs, vec.t, action)
+        return VecEnvState(env_states=st, obs=obs, t=t), reward, done, bad, \
+            success
+
     def _norm_obs(self, rms, obs):
         if not self.norm_obs:
             return obs
         return rms_tree_normalize(rms, obs, self.clip_obs)
 
+    def _norm_step(self, norm: NormState, obs, reward, done):
+        """VecNormalize's bookkeeping of one vector step taken from ``obs``
+        -> (norm', training reward): the return statistics take the
+        discounted return, the reward is scaled by them and clipped, the
+        return accumulator is zeroed on ``done`` after that, and the obs
+        statistics take ``obs``."""
+        returns = norm.returns * self.gamma + reward
+        ret_rms = norm.ret_rms.update(returns)
+        if self.norm_reward:
+            r_train = torch.clamp(reward / torch.sqrt(ret_rms.var + 1e-8),
+                                  -self.clip_reward, self.clip_reward)
+        else:
+            r_train = reward
+        returns = torch.where(done, torch.zeros_like(returns), returns)
+        return NormState(obs_rms=rms_tree_update(norm.obs_rms, obs),
+                         ret_rms=ret_rms, returns=returns), r_train
+
+    # -- rollout and update --------------------------------------------------
     @torch.no_grad()
     def rollout(self, vec: VecEnvState, norm: NormState):
         """``num_steps`` vector steps -> (vec, norm, (obs seen normalised,
@@ -259,22 +329,12 @@ class PPO:
             t1 = time.perf_counter()
             value, action, logp = self.ac.act(nobs, self.act_generator)
             t2 = time.perf_counter()
-            next_vec, reward, done, bad = self.vec_env.step(vec, action)
+            next_vec, reward, done, bad, _ = self.vec_step(vec, action)
             t3 = time.perf_counter()
             split["norm_s"] += t1 - t0
             split["act_s"] += t2 - t1
             split["env_s"] += t3 - t2
-            # return normalization (VecNormalize)
-            returns = norm.returns * self.gamma + reward
-            ret_rms = norm.ret_rms.update(returns)
-            if self.norm_reward:
-                r_train = torch.clamp(reward / torch.sqrt(ret_rms.var + 1e-8),
-                                      -self.clip_reward, self.clip_reward)
-            else:
-                r_train = reward
-            returns = torch.where(done, torch.zeros_like(returns), returns)
-            norm = NormState(obs_rms=rms_tree_update(norm.obs_rms, vec.obs),
-                             ret_rms=ret_rms, returns=returns)
+            norm, r_train = self._norm_step(norm, vec.obs, reward, done)
             steps.append((nobs, action, logp[:, 0], value[:, 0], r_train,
                           done, bad, reward))
             vec = next_vec
@@ -313,11 +373,15 @@ class PPO:
                                            + [a.detach() for a in aux]))
         return torch.stack(metrics).mean(dim=0).cpu()
 
+    def _begin(self):
+        """The rollout's carry at the start of a run: the vector state."""
+        return self.vec_reset()
+
     def update_iteration(self, vec: VecEnvState, norm: NormState):
         """One rollout and its update -> (vec, norm, metrics, raw rewards
-        (T, N), dones (T, N)); ``last_update`` keeps the seconds of each
-        part (the rollout's split too), the metrics, the raw rewards and
-        the vector env's state."""
+        (T, N), dones (T, N), successes (None: PPO keeps none));
+        ``last_update`` keeps the seconds of each part (the rollout's split
+        too), the metrics, the raw rewards and the vector env's state."""
         t0 = time.perf_counter()
         vec, norm, outs = self.rollout(vec, norm)
         t1 = time.perf_counter()
@@ -326,14 +390,25 @@ class PPO:
                             "update_s": time.perf_counter() - t1,
                             **self.rollout_split, "metrics": metrics,
                             "raw_rewards": outs[7], "vec": vec}
-        return vec, norm, metrics, outs[7], outs[5]
+        return vec, norm, metrics, outs[7], outs[5], None
+
+    # -- the score that selects the best model -------------------------------
+    def _score(self, episode_rewards, successes):
+        """The figure that selects the best model and that ``train``
+        returns: the mean episode reward."""
+        return float(np.mean(episode_rewards))
+
+    def _score_text(self, episode_rewards, successes):
+        return (f"mean/median reward {float(np.mean(episode_rewards)):.1f}/"
+                f"{float(np.median(episode_rewards)):.1f}")
 
     # ------------------------------------------------------------------
     def train(self, stop_update: Optional[int] = None):
         """Run updates [resumed update, num_updates); ``stop_update``
         stops early. A full-state checkpoint is written every
-        ``save_interval`` updates and when the loop exits. Returns the mean
-        episode reward of the last (up to 100) episodes."""
+        ``save_interval`` updates and when the loop exits. Returns the
+        score (``_score``) of the last (up to 100) episodes, 0 without
+        one."""
         end_update = (self.num_updates if stop_update is None
                       else min(stop_update, self.num_updates))
         textlog = (log.TextLog(os.path.join(self.logdir, "logs.txt"),
@@ -341,48 +416,50 @@ class PPO:
                    if self.logdir else None)
         if self._resume_blob is not None:
             blob, self._resume_blob = self._resume_blob, None
-            vec, norm = blob["vec"], self.norm
-            update0 = blob["update"]
+            carry, update0 = blob["carry"], blob["update"]
             episode_rewards = deque(blob["episode_rewards"], maxlen=100)
-            ep_acc = blob["ep_acc"]
-            best, elapsed0 = blob["best"], blob["elapsed"]
+            successes = deque(blob["successes"], maxlen=100)
+            ep_acc, best = blob["ep_acc"], blob["best"]
+            elapsed0 = blob["elapsed"]
         else:
-            vec, norm = self.vec_env.reset(), self.norm
-            update0 = 0
+            carry, update0 = self._begin(), 0
             episode_rewards = deque(maxlen=100)
-            ep_acc = np.zeros(self.num_processes)
-            best = -np.inf
-            elapsed0 = 0.0
+            successes = deque(maxlen=100)
+            ep_acc, best, elapsed0 = np.zeros(self.num_processes), -np.inf, 0.0
+        norm = self.norm
 
         t_start = time.time()
-        mean_r = -np.inf
         per_update = self.num_steps * self.num_processes
         for update in range(update0, end_update):
-            vec, norm, metrics, raw_r, dones = self.update_iteration(vec,
-                                                                     norm)
+            carry, norm, metrics, raw_r, dones, succ = self.update_iteration(
+                carry, norm)
             raw_r = raw_r.double().cpu().numpy()     # (T, N)
             dones_np = dones.cpu().numpy()
+            succ_np = None if succ is None else succ.cpu().numpy()
             for t in range(raw_r.shape[0]):
                 ep_acc += raw_r[t]
                 for i in np.nonzero(dones_np[t])[0]:
                     episode_rewards.append(float(ep_acc[i]))
+                    if succ_np is not None:
+                        successes.append(float(succ_np[t, i]))
                     ep_acc[i] = 0.0
             total_steps = (update + 1) * per_update
             if len(episode_rewards) > 0:
-                mean_r = float(np.mean(episode_rewards))
+                score = self._score(episode_rewards, successes)
                 fps = int((total_steps - update0 * per_update)
                           / (time.time() - t_start))
                 loss, aloss, vloss, ent = (float(m) for m in metrics)
                 msg = (f"Updates {update}, num timesteps {total_steps}, "
-                       f"FPS {fps} | mean/median reward "
-                       f"{mean_r:.1f}/{float(np.median(episode_rewards)):.1f} "
+                       f"FPS {fps} | "
+                       f"{self._score_text(episode_rewards, successes)} "
                        f"| value_loss {vloss:.4f} action_loss {aloss:.4f} "
                        f"entropy {ent:.2f}")
                 print(msg, flush=True)
                 if textlog:
                     textlog.append(msg)
-                if self.logdir and mean_r > best:
-                    best = mean_r
+                if (self.logdir and score > best
+                        and len(episode_rewards) >= self.MIN_EPISODES):
+                    best = score
                     self.norm = norm
                     self.save()
             hit_interval = (update % self.save_interval == 0
@@ -390,37 +467,44 @@ class PPO:
             if self.logdir and hit_interval:
                 if len(episode_rewards) > 0:
                     self.norm = norm
-                    self.save(f"model_iter{update}_reward{mean_r:.1f}")
-                self._stash(vec, norm, update + 1, episode_rewards, ep_acc,
-                            best, elapsed0 + time.time() - t_start)
+                    self.save(f"model_iter{update}_"
+                              + self.SCORE_TAG.format(score))
+                self._stash(carry, norm, update + 1, episode_rewards,
+                            successes, ep_acc, best,
+                            elapsed0 + time.time() - t_start)
                 self.save_checkpoint()
         self.norm = norm
-        self._stash(vec, norm, end_update, episode_rewards, ep_acc, best,
-                    elapsed0 + time.time() - t_start)
+        self._stash(carry, norm, end_update, episode_rewards, successes,
+                    ep_acc, best, elapsed0 + time.time() - t_start)
         if self.logdir:
             self.save_checkpoint()
             if end_update >= self.num_updates:
                 self.save("final_policy")
-        return float(np.mean(episode_rewards)) if episode_rewards else 0.0
+        return (self._score(episode_rewards, successes) if episode_rewards
+                else 0.0)
 
     # -- full-state checkpoint / resume --------------------------------
     def _generators(self):
         return {"env": self.env.generator, "act": self.act_generator,
                 "perm": self.perm_generator}
 
-    def _stash(self, vec, norm, update, episode_rewards, ep_acc, best,
-               elapsed):
-        window = np.full(100, np.nan)
-        vals = list(episode_rewards)
-        if vals:
-            window[:len(vals)] = vals
+    def _stash(self, carry, norm, update, episode_rewards, successes, ep_acc,
+               best, elapsed):
+        def window(vals):
+            w = np.full(100, np.nan)
+            vals = list(vals)
+            if vals:
+                w[:len(vals)] = vals
+            return torch.as_tensor(w)
+
         self._train_state = {
-            "vec": [x.clone() for x in tree_leaves(vec)],
+            "carry": [x.clone() for x in tree_leaves(carry)],
             "norm": [x.clone() for x in tree_leaves(norm)],
             "generators": {k: g.get_state()
                            for k, g in self._generators().items()},
             "update": int(update),
-            "episode_rewards": torch.as_tensor(window),
+            "episode_rewards": window(episode_rewards),
+            "successes": window(successes),
             "ep_acc": torch.as_tensor(np.array(ep_acc, np.float64)),
             "best": float(best), "elapsed": float(elapsed)}
 
@@ -431,23 +515,27 @@ class PPO:
              "opt_state": self.optimizer.state_dict(), **self._train_state})
 
     def resume(self, path):
-        """Restore parameters, optimizer state, the vector env's states,
-        the normalisers, the update counter and every generator: a following
-        ``train()`` continues exactly where the checkpointed run stopped
-        (mid-episode env states included)."""
+        """Restore parameters, optimizer state, the rollout's carry (the
+        vector env's states, mid-episode ones included), the normalisers,
+        the update counter and every generator: a following ``train()``
+        continues exactly where the checkpointed run stopped. The carry's
+        layout, and each leaf's device, come from one ``_begin``, whose
+        draws the restored generators then replace."""
         blob = checkpoint.restore_state(path, map_location="cpu")
         self.ac.load_state_dict(blob["params"])
         self.optimizer.load_state_dict(blob["opt_state"])
-        on_device = lambda xs: [x.to(self.device) for x in xs]
-        self.norm = tree_unflatten(self.norm, on_device(blob["norm"]))
-        vec = tree_unflatten(self.vec_env.reset(), on_device(blob["vec"]))
-        vec = dataclasses.replace(vec, t=vec.t.cpu())
+        self.norm = tree_unflatten(self.norm, [x.to(self.device)
+                                               for x in blob["norm"]])
+        like = self._begin()
+        carry = tree_unflatten(like, [x.to(y.device) for x, y in zip(
+            blob["carry"], tree_leaves(like))])
         for k, g in self._generators().items():
             g.set_state(blob["generators"][k])
-        window = blob["episode_rewards"].numpy()
+        clean = lambda w: [float(x) for x in w.numpy()[~np.isnan(w.numpy())]]
         self._resume_blob = {
-            "vec": vec, "update": int(blob["update"]),
-            "episode_rewards": [float(x) for x in window[~np.isnan(window)]],
+            "carry": carry, "update": int(blob["update"]),
+            "episode_rewards": clean(blob["episode_rewards"]),
+            "successes": clean(blob["successes"]),
             "ep_acc": blob["ep_acc"].numpy().copy(),
             "best": float(blob["best"]), "elapsed": float(blob["elapsed"])}
 

@@ -84,6 +84,34 @@ def actor_critic_params_from_numpy(tree: Dict[str, Any]
     return out
 
 
+def actor_critic_rnn_params_from_numpy(tree: Dict[str, Any]
+                                       ) -> Dict[str, torch.Tensor]:
+    """State dict of ``models.nets.ActorCriticRNN`` from the param tree of
+    the flax ``ActorCriticRNN`` (CNN or MLP features, ``gru{i}`` cells)."""
+    p = tree.get("params", tree)
+    out: Dict[str, torch.Tensor] = {}
+    feat = p["feature_net"]
+    if "Conv_0" in feat:
+        _cnn("feature_net", feat, out)
+    else:
+        _mlp("feature_net", feat, out)
+    i = 0
+    while f"gru{i}" in p:
+        cell = p[f"gru{i}"]
+        for name in ("ir", "iz", "in", "hr", "hz", "hn"):
+            dst = f"cells.{i}.{'in_' if name == 'in' else name}"
+            out[f"{dst}.weight"] = torch.as_tensor(
+                np.array(cell[name]["kernel"]).T)
+            if "bias" in cell[name]:
+                out[f"{dst}.bias"] = torch.as_tensor(
+                    np.array(cell[name]["bias"]))
+        i += 1
+    _actor("actor.", p["actor"], out)
+    _mlp("critic.mlp", p["critic"]["MLP_0"], out)
+    _dense("critic.value", p["critic"]["Dense_0"], out)
+    return out
+
+
 def model_from_numpy(leaves: Dict[str, Any], dtype=torch.float64,
                      device="cpu"):
     """The port's ``Model`` from the leaves of the JAX package's ``Model``

@@ -3,8 +3,8 @@ registration: StableGrasp-v1, TactilePush-v1, TactileRotation-v1,
 Insertion-v3, with max_episode_steps 10/100/200/15).
 
 ``make(name, **kwargs)`` passes ``kwargs`` (``observation_type``,
-``device``, ``dtype``, ``seed``) to the env's ``make``. Only TactilePush is
-ported; the other ids raise.
+``device``, ``dtype``, ``seed`` and the env's options) to the env's
+``make``. TactilePush and TactileInsertion are ported; the other ids raise.
 """
 
 from __future__ import annotations
@@ -29,6 +29,11 @@ def _push(**kw):
     return tactile_push.make(**kw)
 
 
+def _insertion(**kw):
+    from . import tactile_insertion
+    return tactile_insertion.make(**kw)
+
+
 def _not_ported(module):
     def factory(**_):
         raise NotImplementedError(
@@ -40,4 +45,4 @@ def _not_ported(module):
 register("StableGrasp-v1", _not_ported("stable_grasp"), 10)
 register("TactilePush-v1", _push, 100)
 register("TactileRotation-v1", _not_ported("dclaw_rotate"), 200)
-register("Insertion-v3", _not_ported("tactile_insertion"), 15)
+register("Insertion-v3", _insertion, 15)

@@ -1,10 +1,11 @@
 """Policy and value networks: MLP, CNN, the diagonal-Gaussian actors, the
 critics and the feed-forward actor-critic.
 
-Port of ``tactilesimulation_tpu/models/nets.py`` (all but the recurrent
-``ActorCriticRNN``), configured by the same YAML network sections
+Port of ``tactilesimulation_tpu/models/nets.py``, the recurrent
+``ActorCriticRNN`` (CNN or MLP features -> stacked GRU cells -> actor and
+critic) included, configured by the same YAML network sections
 (layer_sizes / kernel_sizes / stride_sizes / hidden_size / activation /
-layernorm / actor_logstd_init). flax infers input widths at ``init``;
+layernorm / actor_logstd_init / rnn_hidden_size / rnn_hidden_layers). flax infers input widths at ``init``;
 here each module takes its observation's shape: ``(D,)`` for a vector,
 ``(C, H, W)`` for an image, ``((C, H, W), (S,))`` for the (image, state)
 tuple of ``tactile_map``. Parameters carried over from the flax modules
@@ -223,3 +224,94 @@ class ActorCritic(nn.Module):
         """(value, log-prob, entropy averaged over the batch)."""
         dist, value = self(obs)
         return value, dist.log_prob(actions), dist.entropy().mean()
+
+
+class GRUCell(nn.Module):
+    """flax's ``nn.GRUCell``: the input maps ``ir``, ``iz``, ``in_`` carry a
+    bias, the hidden maps ``hr`` and ``hz`` none and ``hn`` one (torch's
+    ``nn.GRUCell`` has a hidden bias on every gate, which training would
+    move where flax has none).
+
+        r = sigmoid(ir(x) + hr(h)),  z = sigmoid(iz(x) + hz(h))
+        n = tanh(in_(x) + r * hn(h)),  h' = (1 - z) n + z h
+    """
+
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__()
+        self.ir = nn.Linear(in_dim, hidden)
+        self.iz = nn.Linear(in_dim, hidden)
+        self.in_ = nn.Linear(in_dim, hidden)
+        self.hr = nn.Linear(hidden, hidden, bias=False)
+        self.hz = nn.Linear(hidden, hidden, bias=False)
+        self.hn = nn.Linear(hidden, hidden)
+
+    def forward(self, h, x):
+        r = torch.sigmoid(self.ir(x) + self.hr(h))
+        z = torch.sigmoid(self.iz(x) + self.hz(h))
+        n = torch.tanh(self.in_(x) + r * self.hn(h))
+        return (1.0 - z) * n + z * h
+
+
+class ActorCriticRNN(nn.Module):
+    """Features (``feature_cnn``, or ``feature_mlp`` for the reference's
+    ActorCriticMLPRNN) -> ``rnn_hidden_layers`` GRU cells of
+    ``rnn_hidden_size`` -> DiagGaussianActor and MLPCritic on the last
+    cell's output.
+
+    The hidden state of an instance is its cells' states flattened to
+    (layers * hidden,); ``mask`` (one per instance, 0 where an episode
+    begins) multiplies it before the step, which resets it. Every method
+    takes a batch: obs (N, ...), hxs (N, layers * hidden), mask (N,)."""
+
+    def __init__(self, obs_shape, action_dim: int, cfg: Dict[str, Any]):
+        super().__init__()
+        if "feature_mlp" in cfg:
+            self.feature_net = MLP(obs_shape[0], cfg["feature_mlp"])
+        else:
+            self.feature_net = CNN(obs_shape, cfg["feature_cnn"])
+        self.hidden = cfg["rnn_hidden_size"]
+        self.layers = cfg["rnn_hidden_layers"]
+        sizes = [self.feature_net.out_dim] + [self.hidden] * self.layers
+        self.cells = nn.ModuleList(GRUCell(a, self.hidden)
+                                   for a in sizes[:-1])
+        self.actor = DiagGaussianActor(self.hidden, action_dim, cfg)
+        self.critic = MLPCritic(self.hidden, cfg)
+
+    @property
+    def hidden_size(self) -> int:
+        return self.layers * self.hidden
+
+    def initial_hidden(self, n: int, dtype=None, device=None):
+        return torch.zeros((n, self.hidden_size), dtype=dtype, device=device)
+
+    def _rnn(self, feat, hxs, mask):
+        h = (hxs * mask[..., None]).reshape(
+            hxs.shape[:-1] + (self.layers, self.hidden))
+        x, new_h = feat, []
+        for i, cell in enumerate(self.cells):
+            x = cell(h[..., i, :], x)
+            new_h.append(x)
+        return x, torch.stack(new_h, dim=-2).reshape(hxs.shape)
+
+    def forward(self, obs, hxs, mask):
+        out, new_hxs = self._rnn(self.feature_net(obs), hxs, mask)
+        return self.actor(out), self.critic(out), new_hxs
+
+    def act(self, obs, hxs, mask, generator=None, deterministic=False):
+        """(value, action, log-prob, new hidden state): a sample drawn from
+        ``generator`` for each instance, or the mode."""
+        dist, value, new_hxs = self(obs, hxs, mask)
+        action = dist.mode() if deterministic else dist.sample(generator)
+        return value, action, dist.log_prob(action), new_hxs
+
+    def get_value(self, obs, hxs, mask):
+        return self(obs, hxs, mask)[1]
+
+    def evaluate_actions(self, obs, hxs, mask, actions):
+        """(value, log-prob, entropy, new hidden state), per instance."""
+        dist, value, new_hxs = self(obs, hxs, mask)
+        return value, dist.log_prob(actions), dist.entropy(), new_hxs
+
+
+#: the reference's name for the same module with ``feature_mlp``
+ActorCriticMLPRNN = ActorCriticRNN

@@ -68,6 +68,19 @@ def rotvec_to_quat(r):
     return torch.cat([w, k * r], dim=-1)
 
 
+def quat_to_rotvec(q):
+    """Log map, the inverse of ``rotvec_to_quat`` (principal branch)."""
+    q = torch.where(q[..., :1] < 0, -q, q)            # the w >= 0 branch
+    w = torch.clamp(q[..., :1], -1.0, 1.0)
+    v = q[..., 1:]
+    s = torch.linalg.norm(v, dim=-1, keepdim=True)
+    angle = 2.0 * torch.atan2(s, w)
+    small = s < 1e-6
+    scale = torch.where(small, 2.0 / torch.clamp(w, min=0.5),
+                        angle / torch.clamp(s, min=_EPS))
+    return scale * v
+
+
 def euler_xyz_to_quat(e):
     """Intrinsic XYZ euler angles -> quaternion (free3d-euler joints)."""
     half = 0.5 * e
@@ -104,3 +117,8 @@ def transform_compose(p_a, q_a, p_b, q_b):
 
 def transform_apply(p, q, x):
     return p + quat_rotate(q, x)
+
+
+def rotvec_mul(r_a, r_b):
+    """Compose two rotation vectors."""
+    return quat_to_rotvec(quat_mul(rotvec_to_quat(r_a), rotvec_to_quat(r_b)))

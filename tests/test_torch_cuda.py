@@ -585,3 +585,55 @@ def test_ppo_update_on_card(card):
     assert bool(torch.isfinite(metrics).all())
     assert all(bool(torch.isfinite(p).all()) for p in algo.ac.parameters())
     assert all(p.is_cuda for p in algo.ac.parameters())
+
+
+@pytest.mark.parametrize("B", (8, 16))
+def test_insertion_lane_execute_matches_plain_route(card, B, monkeypatch):
+    """TactileInsertion's lane script with K1 (per-lane contact parameters)
+    and K1T (the chord factors' pullbacks) against the plain lane contact,
+    both on the card in float32 (K1 has no float64 instance): the first
+    substep's chord factor and chord from the start pose within 1e-3 of
+    scale (on the CPU K1's plain twin parts from the plain contact by
+    about 1e-5: the sums run in other orders and the 10 sweeps do not
+    converge); then the script cut to 10 substeps (3 chord factors, the
+    captures at substeps 6 and 9) through K1: launches 3 + 10 x 11 + 2 and
+    3 x 12, the twin never, finite q and observations. The whole script
+    diverges lane by lane under round-off (see chip_smoke's insertion
+    phase), so its outputs are not compared here."""
+    from tactilesimulation_tpu_torch.envs import tactile_insertion
+    from tactilesimulation_tpu_torch.envs import tactile_insertion_lanes
+    env = tactile_insertion.make(device=card, dtype=torch.float32, seed=B,
+                                 allow_rotation=True, num_obs_frames=1,
+                                 domain_randomization=True)
+    fused = tactile_insertion_lanes.TactileInsertionLanes(env)
+    plain = tactile_insertion_lanes.TactileInsertionLanes(env, fused=False)
+    pw = fused.pair_wrenches
+    assert pw is not None and plain.pair_wrenches is None
+    s = env._sample_reset(B)
+    model = fused._batched_model({k: s[k].T
+                                  for k in tactile_insertion.DR_NAMES})
+    q = s["q_cmd"].T.contiguous()
+    v = torch.zeros_like(q)
+    u = env.script(q.T, s["grasp_force"])[0].T.contiguous()
+    inputs = lanes.StepInputs(model=model, u=u, q_base=q,
+                              p_base=lanes.momentum(env.struct, model, q, v),
+                              gamma=model.h.reshape(1, 1))
+    out = {}
+    for name, lenv in (("kernel", fused), ("plain", plain)):
+        lu = lanes.make_chord_lu(lenv._residual, inputs, v)
+        with torch.no_grad():
+            out[name] = {"lu": lu, "v": lanes._chord(
+                lenv._residual, lenv.max_iter, 1e-7, inputs, v, lu)}
+    err = max_rel(out["kernel"], out["plain"])
+    assert err["lu"] <= 1e-3 and err["v"] <= 1e-3, err
+
+    monkeypatch.setattr(tactile_insertion_lanes, "EXEC_STEPS", 10)
+    env.capture_frames = [6, 9]
+    pw.reset_counts()
+    with torch.no_grad():
+        q_k, obs_k = fused._lane_execute(model, q, s["grasp_force"],
+                                         env._draw("obs_noise", B))
+    assert (pw.launches, pw.bwd_launches,
+            pw.twin_vjps + pw.twin_recomputes) == (3 + 10 * 11 + 2, 3 * 12,
+                                                   0)
+    assert bool(torch.isfinite(q_k).all() and torch.isfinite(obs_k).all())

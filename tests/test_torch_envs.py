@@ -23,6 +23,8 @@
   wrapper.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,11 +32,13 @@ import pytest
 import torch
 
 from tactilesimulation_tpu.envs import pendulum as jax_pend
+from tactilesimulation_tpu.envs import tactile_insertion as jax_ti
 from tactilesimulation_tpu.envs import tactile_push as jax_tp
 from tactilesimulation_tpu.sim import dynamics as jax_dynamics
 from tactilesimulation_tpu_torch import envs
 from tactilesimulation_tpu_torch.envs import gym_wrapper
 from tactilesimulation_tpu_torch.envs import pendulum as torch_pend
+from tactilesimulation_tpu_torch.envs import tactile_insertion as torch_ti
 from tactilesimulation_tpu_torch.envs import tactile_push as torch_tp
 from tactilesimulation_tpu_torch.envs import tactile_push_lanes
 from tactilesimulation_tpu_torch.ops import tactile_query
@@ -301,15 +305,29 @@ def test_batched_rollout_matches_single_rollouts():
         assert torch.equal(r, rewards[e])
 
 
+def _no_settle(*args, **kwargs):
+    raise AssertionError("the shipped start pose was not used")
+
+
 def test_registry():
     env = envs.make("TactilePush-v1", observation_type="privilege",
                     device="cpu", dtype=F64)
     assert isinstance(env, torch_tp.TactilePushEnv)
     assert env.max_episode_steps == 100 and env.ndof_u == 3
     assert env.obs_size() == (6,)
-    for name in ("StableGrasp-v1", "TactileRotation-v1", "Insertion-v3"):
+    for name in ("StableGrasp-v1", "TactileRotation-v1"):
         with pytest.raises(NotImplementedError, match="item 7"):
             envs.make(name, device="cpu")
+    # Insertion-v3 builds from the shipped start pose: no settle runs
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch_ti, "settle", _no_settle)
+        ins = envs.make("Insertion-v3", device="cpu", dtype=F64,
+                        num_obs_frames=5)
+    assert isinstance(ins, torch_ti.TactileInsertionEnv)
+    assert ins.max_episode_steps == 15
+    assert ins.obs_size() == jax_ti.TactileInsertionEnv.obs_size(
+        types.SimpleNamespace(observation_type="tactile_map",
+                              tactile_samples=5))
     with pytest.raises(NotImplementedError):
         torch_tp.make(scene_path="pusher.xml", device="cpu")
     if not torch.cuda.is_available():

@@ -483,7 +483,7 @@ def test_train_checkpoint_resume_is_exact(tmp_path):
     for x, y in zip(tree_leaves(straight.norm), tree_leaves(resumed.norm)):
         torch.testing.assert_close(y, x, rtol=0, atol=0)
     ta, tb = straight._train_state, resumed._train_state
-    for x, y in zip(ta["vec"], tb["vec"]):
+    for x, y in zip(ta["carry"], tb["carry"]):
         torch.testing.assert_close(y, x, rtol=0, atol=0)
     for k in ("env", "act", "perm"):
         assert torch.equal(ta["generators"][k], tb["generators"][k]), k
