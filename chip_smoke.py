@@ -156,6 +156,38 @@ seconds):
               build time; then ``play_once`` for INS_PLAY steps: the read
               kernel 2 per single-instance
               script, the points entry and K1 never.
+11. grasp   - slice 10, StableGrasp (``envs.make("StableGrasp-v1")``,
+              tactile_map, f32, through ``GymEnv``), in a second process
+              started after kernels (CHILD_PHASES, its output printed
+              when it is joined after insertion): (a) the reset's
+              180-substep script from the shipped start pose, and one
+              step's script if a probe substep predicts it within
+              GRASP_BUDGET_S: the read kernel once per script (its
+              capture), the points entry never, K1-K3 never (their
+              libraries never loaded in that process); a finite (4, 13,
+              10) obs, rows in contact at the capture; ms per script and
+              substep, eager aten ops and the busy share over a substep;
+              the capture's read held to the plain version (the float64
+              read at the recorded state on the float64 model to
+              READ_TOL, the float32 one by PPO_READ_F32_VS_F64); (b) a
+              reset and one step on GRASP_SHORT from GRASP_DRAWS, card
+              against CPU: densities, poses, both captured fields and
+              obs, the reward (float64 within ADJ_F64_TOL of scale,
+              float32 within ROLL_F32_VS_F64 of the CPU float32 run's
+              distance from float64), success equal;
+12. dclaw   - slice 10, DClaw cap rotation
+              (``envs.make("TactileRotation-v1")``, tactile, f32, through
+              ``GymEnv``), in the same second process: (a) a reset and
+              DCLAW_STEPS random steps with reset-on-done, then a reset
+              onto DCLAW_CONTACT: the read kernel once per observation,
+              the points entry and K1-K3 never; finite obs of 3,618, in
+              contact at DCLAW_CONTACT, where the read is held to the plain
+              version as in grasp; env steps/s, eager aten ops and the
+              busy share over a substep; (b) from DCLAW_CONTACT a reset and
+              the steps DCLAW_CROSS_US, card against CPU as in grasp (q,
+              qdot, every obs, the rewards; flags equal); then resets with
+              the radii DCLAW_RADII on the card: each read equal to the
+              plain version on its own Model, through a plan of its own.
 
 The line before the card's line is the kernel table as JSON; the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -170,6 +202,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -262,6 +295,12 @@ K4_N = 40000             # RollingBall 200 x 200 markers against the sphere
 # on READ_SCENES.
 READ_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 READ_ROUNDING_ROWS = 0.01
+# an env's float64 read at its own recorded state, where the contact may be
+# light (StableGrasp's capture: 260 rows at 7.5e-4 N of scale, the read
+# 1.9e-12 of scale off the plain version on the card): held to READ_TOL of
+# scale plus K1_F32_VS_F64 x the jump the plain version makes itself when
+# q and v move by up to READ_F64_JITTER of themselves (K1_JITTER_RUNS moves)
+READ_F64_JITTER = 2.0 ** -50
 ROLL_RES, ROLL_STRIDE, ROLL_STEPS, ROLL_CUT = 200, 5, 350, 100
 ROLL_BUDGET_S = 150.0    # cut the rolling main path to ROLL_CUT past this
 # card against CPU over 10 RollingBall steps from the pad pressed onto the
@@ -345,6 +384,40 @@ INS_F64_TOL = ADJ_F64_TOL
 # version is within 1e-5 of float64, which parts by 2.0e-5 on another
 INS_K1_F32_VS_F64 = 3.0
 INS_SETTLE_CUT = ((2, 2, 2), 2)
+# the grasp and dclaw phases run in a second process beside the phases after
+# kernels (their eager dispatch is host work on another core; their device
+# work is a small share of a substep): CHILD_PHASES, joined before the
+# kernel table is printed
+CHILD_PHASES = ("grasp", "dclaw")
+CHILD_DEADLINE_S = 1140.0      # the child is stopped at this time of the run
+# the grasp phase: StableGrasp-v1 (tactile_map, f32) through GymEnv; the
+# reset's full script (180 substeps) always runs, a step's full script only
+# when a probe substep predicts it within GRASP_BUDGET_S. Card against CPU
+# on GRASP_SHORT (stage substeps, capture index: 20 substeps, the capture
+# at the first substep of the lift) from GRASP_DRAWS (RandomState seed: a
+# bar the pads hold at that substep; on this schedule the pads hold a bar
+# for about 3 substeps, from substep 13 to 16 by its masses, and some bars
+# not at all) and an action of
+# GRASP_ACTION, float64
+# within ADJ_F64_TOL of scale, float32 held to the CPU float32 run's
+# distance from float64 (ROLL_F32_VS_F64)
+GRASP_BUDGET_S = 150.0
+GRASP_SHORT = ([2, 12, 2, 1, 1, 1, 1], 15)
+GRASP_DRAWS = 4
+GRASP_ACTION = 0.5
+# the dclaw phase: TactileRotation-v1 (tactile, f32) through GymEnv, a reset
+# and DCLAW_STEPS random steps with reset-on-done, then a reset onto
+# DCLAW_CONTACT (the cap's radius 0.055 at the nominal finger pose: every
+# fingertip on the cap's rim); card against CPU from DCLAW_CONTACT, 3 steps
+# of DCLAW_CROSS_US, then resets with the radii DCLAW_RADII, each read held
+# to the plain version on its own Model
+DCLAW_STEPS = 3
+DCLAW_CONTACT = {"noise": [0.0] * 9, "damping": 0.3, "radius": 0.055,
+                 "dxy": [0.0, 0.0]}
+DCLAW_CROSS_US = ((0.4, -0.3, 0.8, 0.1, 0.5, -0.6, 0.2, -0.2, 0.9),
+                  (1.6, -0.5, 0.3, -1.3, 0.2, 0.7, 0.0, 1.2, -0.4),
+                  (-0.2, 0.1, 0.0, 0.3, -0.4, 0.2, 0.5, 0.0, -0.1))
+DCLAW_RADII = (0.03, 0.07)
 MEGA = "tactilesimulation_tpu_torch/csrc/megastep.cu"
 LANE = "tactilesimulation_tpu_torch/csrc/lane_contact.cu"
 DENSE = "tactilesimulation_tpu_torch/csrc/dense_contact.cu"
@@ -722,6 +795,24 @@ def facade_backward(struct, model64, dev, dtype, q, v, seed=6):
             out[f"{name} {k}"] = torch.as_tensor(getattr(r, k)).double()
         out[f"{name} df_dp"] = _flat_model(r.df_dp)
     return out
+
+
+def read_f64_tol(struct, m64, q64, v64, ref64):
+    """(tolerance, jump) of a float64 read at (q64, v64) against its plain
+    version ``ref64``: READ_TOL of scale plus K1_F32_VS_F64 x the jump the
+    plain version makes itself when q and v move by up to READ_F64_JITTER
+    of themselves (the largest of K1_JITTER_RUNS moves). Light contact
+    takes a force of kn x a sub-micrometre depth, a difference of
+    near-equal coordinates, which moves at round-off when they do."""
+    from tactilesimulation_tpu_torch.ops import tactile_query
+    gen = torch.Generator(device=q64.device).manual_seed(0)
+    moved = lambda a: a * (1 + READ_F64_JITTER * (2 * torch.rand(
+        a.shape, generator=gen, device=a.device, dtype=torch.float64) - 1))
+    jump = max(float((tactile_query.tactile_field_ref(
+        struct, m64, moved(q64), moved(v64)) - ref64).abs().max())
+        for _ in range(K1_JITTER_RUNS))
+    scale = float(ref64.abs().max())
+    return READ_TOL[torch.float64] * scale + K1_F32_VS_F64 * jump, jump
 
 
 def max_rel(got, want):
@@ -2474,25 +2565,10 @@ class Smoke:
             if reads != (1 + H if where.type == "cuda" else 0):
                 raise AssertionError(f"{label}: {reads} read launches "
                                      f"for {1 + H} reads")
-        ref = runs[("cpu", torch.float64)]
-        if not float(ref["tactile_flatten"][3:].abs().max()) > 0:
+        if not float(runs[("cpu", torch.float64)]["tactile_flatten"][3:]
+                     .abs().max()) > 0:
             raise AssertionError("the pad never touched the box")
-        bad = []
-        for k, w in ref.items():
-            e64 = max_rel({k: runs[("card", torch.float64)][k]}, {k: w})[k]
-            e_card = max_rel({k: runs[("card", torch.float32)][k]},
-                             {k: w})[k]
-            e_cpu = max_rel({k: runs[("cpu", torch.float32)][k]}, {k: w})[k]
-            mult, floor = ROLL_F32_VS_F64
-            print(f"  {k:15s} card f64 vs cpu f64 {e64:.3e} (tol "
-                  f"{PPO_F64_TOL:g}); f32 vs cpu f64: card {e_card:.3e}, "
-                  f"cpu {e_cpu:.3e} (tol {mult:g} x cpu + {floor:g})")
-            if not e64 <= PPO_F64_TOL:
-                bad.append(f"{k} f64")
-            if not e_card <= mult * e_cpu + floor:
-                bad.append(f"{k} f32")
-        if bad:
-            raise AssertionError(f"TactilePush env, card vs CPU: {bad}")
+        self.compare_runs(runs, "TactilePush env", PPO_F64_TOL)
 
     def insertion(self, dev):
         """Slice 9: recurrent PPO on TactileInsertion through the lane-major
@@ -2931,6 +3007,407 @@ class Smoke:
         row = self.kernel_rows.setdefault("K4R", {})
         row["launches"] = row.get("launches", 0) + reads
 
+    # 11 ------------------------------------------------------------------
+    def env_read_check(self, what, struct, model, m64, q, v, got):
+        """A single-instance env's float32 read ``got`` at its recorded
+        state (q, v) on ``model``, held to the plain version: the read
+        kernel's float64 instance at the same state on the float64 Model
+        ``m64`` on every row to READ_TOL of scale plus the plain version's
+        own jump at round-off (READ_F64_JITTER), and ``got`` within
+        PPO_READ_F32_VS_F64 of the float32 plain version's distance from
+        the float64 one on ``model`` widened. Returns the rows in
+        contact."""
+        from tactilesimulation_tpu_torch.ops import tactile_query
+        plain = tactile_query.tactile_field_ref
+        row = lambda a, b: (a.double() - b.double()).abs().amax(dim=1)
+        q64, v64 = q.double(), v.double()
+        ref64 = plain(struct, m64, q64, v64)
+        scale = float(ref64.abs().max())
+        active = int((ref64.abs().sum(dim=1) > 0).sum())
+        if active == 0:
+            raise AssertionError(f"{what}: no row in contact")
+        e64 = float(row(tactile_query.tactile_field(struct, m64, q64, v64),
+                        ref64).max())
+        tol64, jump = read_f64_tol(struct, m64, q64, v64, ref64)
+        widened = model.to(q.device, torch.float64)
+        refw = plain(struct, widened, q64, v64)
+        sw = float(refw.abs().max())
+        e_k = float(row(got, refw).max()) / sw
+        e_p = float(row(plain(struct, model, q64.float(), v64.float()),
+                        refw).max()) / sw
+        mult, floor = PPO_READ_F32_VS_F64
+        print(f"  {what}: {active} of {ref64.shape[0]} rows in contact; "
+              f"the f64 read {e64 / scale:.3e} of scale {scale:.3e} from the "
+              f"plain version (tol {READ_TOL[torch.float64]:g} + "
+              f"{K1_F32_VS_F64:g} x the plain version's own jump "
+              f"{jump / scale:.3e} under moves of q, v by "
+              f"{READ_F64_JITTER:.1e} of themselves); the f32 "
+              f"read {e_k:.3e} of scale from float64, the f32 plain version "
+              f"{e_p:.3e} (tol {mult:g} x it + {floor:g})")
+        if not e64 <= tol64:
+            raise AssertionError(f"{what}: the f64 read is {e64:.3e} off "
+                                 f"the plain version (tol {tol64:.3e})")
+        if not e_k <= mult * e_p + floor:
+            raise AssertionError(f"{what}: the f32 read is {e_k:.3e} of "
+                                 f"scale off float64, the f32 plain version "
+                                 f"{e_p:.3e}")
+        return active
+
+    @staticmethod
+    def lane_kernels_loaded():
+        """K1/K1T's and K2/K3's libraries loaded in this process (the
+        child process that runs CHILD_PHASES loads neither unless one of
+        their kernels was launched)."""
+        from tactilesimulation_tpu_torch.ops import _build
+        return sorted(set(_build._loaded) & {"lane_contact", "megastep"})
+
+    def grasp(self, dev):
+        """Slice 10: StableGrasp through the registry and the gym wrapper
+        (the reset's 180-substep script from the shipped start pose, K4R
+        once at its capture); then card against CPU on GRASP_SHORT."""
+        from tactilesimulation_tpu_torch import envs
+        from tactilesimulation_tpu_torch.envs import stable_grasp
+        from tactilesimulation_tpu_torch.envs.gym_wrapper import GymEnv
+        from tactilesimulation_tpu_torch.model import task_scenes
+        from tactilesimulation_tpu_torch.ops import dense_contact
+        from tactilesimulation_tpu_torch.sim import integrators
+        env = envs.make("StableGrasp-v1", observation_type="tactile_map",
+                        device=dev, dtype=torch.float32, seed=0)
+        gym = GymEnv(env, seed=0)
+        T = sum(stable_grasp.STAGE_STEPS)
+        # probe: the script's first substep from the start pose
+        q0 = env.q_init_ref
+        u0 = env.script(q0, q0.new_zeros(()))[0]
+        sim0 = integrators.initial_state(env.struct, env.model).replace(
+            q=q0, q_prev=q0)
+        substep = lambda: env._step_sim(env.model, sim0, u0)
+        with torch.no_grad():
+            substep()                  # the allocator's first use
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            substep()
+            torch.cuda.synchronize()
+        sub_s = time.perf_counter() - t0
+        run_step = T * sub_s <= GRASP_BUDGET_S
+        print(f"  probe: a substep {sub_s:.3f} s, so a {T}-substep script "
+              f"about {T * sub_s:.1f} s: "
+              + ("the reset's and one step's scripts run" if run_step else
+                 f"past {GRASP_BUDGET_S:.0f} s, the reset's script runs and "
+                 "the step's runs in (b) on GRASP_SHORT")
+              + f" [{self.card}]")
+
+        # (a) the main path
+        dense_contact.reset_counts()
+        t0 = time.perf_counter()
+        obs = gym.reset()
+        torch.cuda.synchronize()
+        times = [time.perf_counter() - t0]
+        if run_step:
+            t0 = time.perf_counter()
+            obs, reward, _, info = gym.step(np.array([GRASP_ACTION]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            print(f"  the step (action {GRASP_ACTION}): reward {reward:.4f}, "
+                  f"success {bool(info['success'])}")
+        reads, points = dense_contact.read_launches, dense_contact.launches
+        lanes = self.lane_kernels_loaded()
+        ex = gym._state.extras
+        in_contact = int((ex.cap_field.abs().sum(dim=1) > 0).sum())
+        print(f"  StableGrasp f32 through GymEnv: "
+              + ", ".join(f"{name} script {t:.2f} s ({t / T * 1e3:.1f} ms a "
+                          "substep)" for name, t in
+                          zip(("the reset's", "the step's"), times))
+              + f"; read kernel launches {reads} (want {len(times)}: one "
+              f"per script), points entry {points}, K1-K3 libraries loaded "
+              f"{lanes} (want none); {in_contact} rows in contact at the "
+              f"capture [{self.card}]")
+        if (reads, points) != (len(times), 0) or lanes:
+            raise AssertionError("the scripts did not read through K4R as "
+                                 "counted")
+        if obs.shape != (4, 13, 10) or not np.isfinite(obs).all():
+            raise AssertionError(f"obs {obs.shape}, finite "
+                                 f"{np.isfinite(obs).all()}")
+        if in_contact == 0:
+            raise AssertionError("no marker row in contact at the capture")
+        row = self.kernel_rows.setdefault("K4R", {})
+        row["launches"] = row.get("launches", 0) + reads
+        with torch.no_grad(), AtenCount() as count:
+            substep()
+        print(f"  eager aten ops per substep {count.n} [{self.card}]")
+        self.device_share(substep, "one StableGrasp substep")
+        _, m64 = task_scenes.stable_grasp()
+        self.env_read_check("the capture's read", env.struct,
+                            env._model_for(ex), m64.to(dev, torch.float64),
+                            ex.cap_q, ex.cap_qdot, ex.cap_field)
+
+        # (b) card against CPU
+        self.grasp_cross(dev)
+
+    def grasp_cross(self, dev):
+        """Reset and one step on GRASP_SHORT from GRASP_DRAWS: the card
+        (K4R) against the CPU (its plain version), float64 within
+        ADJ_F64_TOL of scale, float32 held to the CPU float32 run's
+        distance from float64."""
+        from tactilesimulation_tpu_torch.envs import stable_grasp
+        from tactilesimulation_tpu_torch.ops import dense_contact
+        saved = stable_grasp.STAGE_STEPS, stable_grasp.CAPTURE_FRAME
+        stable_grasp.STAGE_STEPS = list(GRASP_SHORT[0])
+        stable_grasp.CAPTURE_FRAME = GRASP_SHORT[1]
+        cpu = torch.device("cpu")
+        runs, flags = {}, {}
+        try:
+            for where, dtype in ((dev, torch.float64), (cpu, torch.float64),
+                                 (dev, torch.float32), (cpu, torch.float32)):
+                env = stable_grasp.make(device=where, dtype=dtype)
+                d = self.grasp_draws(where, dtype)
+                env._draw = lambda what, B, d=d: d
+                dense_contact.reset_counts()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    state, obs0 = env.reset()
+                    state1, obs1, reward, done, _ = env.step(
+                        state, torch.tensor([GRASP_ACTION], dtype=dtype,
+                                            device=where))
+                ex0, ex1 = state.extras, state1.extras
+                out = {"densities": stable_grasp.densities(d)[0],
+                       "reset q": ex0.current_q, "final q": ex1.current_q,
+                       "reset capture": ex0.cap_field,
+                       "step capture": ex1.cap_field, "reset obs": obs0,
+                       "step obs": obs1, "reward": reward}
+                label = "card" if where is dev else "cpu"
+                runs[(label, dtype)] = {k: v.double().cpu()
+                                        for k, v in out.items()}
+                flags[(label, dtype)] = bool(done)
+                reads = dense_contact.read_launches
+                print(f"  {label} {dtype}: reset and one step on "
+                      f"{GRASP_SHORT[0]} in {time.perf_counter() - t0:.2f} "
+                      f"s, read kernel launches {reads}, success "
+                      f"{bool(done)}")
+                if reads != (2 if where.type == "cuda" else 0):
+                    raise AssertionError(f"{label}: {reads} read launches "
+                                         "for 2 captures")
+        finally:
+            stable_grasp.STAGE_STEPS, stable_grasp.CAPTURE_FRAME = saved
+        self.compare_runs(runs, "StableGrasp", ADJ_F64_TOL)
+        ref = runs[("cpu", torch.float64)]
+        for k in ("reset capture", "step capture"):
+            if not int((ref[k].abs().sum(dim=1) > 0).sum()) > 0:
+                raise AssertionError(f"StableGrasp: no row in contact at the "
+                                     f"{k}")
+        if len(set(flags.values())) != 1:
+            raise AssertionError(f"StableGrasp: success differs {flags}")
+
+    @staticmethod
+    def grasp_draws(where, dtype):
+        """StableGrasp's "reset" draws (B = 1) from GRASP_DRAWS: a bar whose
+        capture on GRASP_SHORT is in contact (on that schedule the pads
+        hold some bars only before or after substep GRASP_SHORT[1])."""
+        from tactilesimulation_tpu_torch.envs import stable_grasp
+        rng = np.random.RandomState(GRASP_DRAWS)
+        nb = stable_grasp.NUM_BLOCKS
+        com_y = rng.uniform(1.0, nb - 1.0)
+        left, right = np.floor(com_y), nb - 1 - np.floor(com_y)
+        draws = {"com_y": [com_y], "mid": [rng.uniform(600.0, 700.0)],
+                 "right": [rng.uniform(600.0 * right, 700.0 * right)],
+                 "left": [rng.uniform(600.0 * left, 700.0 * left)],
+                 "ratios": [rng.uniform(0.0, 1.0, nb)]}
+        return {k: torch.tensor(np.asarray(v), dtype=dtype, device=where)
+                for k, v in draws.items()}
+
+    def compare_runs(self, runs, what, tol64):
+        """{(card|cpu, dtype): {name: float64 CPU tensor}}: card float64
+        within ``tol64`` of the CPU's scale, card float32 within
+        ROLL_F32_VS_F64 of the CPU float32 run's distance from float64."""
+        ref = runs[("cpu", torch.float64)]
+        mult, floor = ROLL_F32_VS_F64
+        bad = []
+        for k, w in ref.items():
+            e64 = max_rel({k: runs[("card", torch.float64)][k]}, {k: w})[k]
+            e_card = max_rel({k: runs[("card", torch.float32)][k]},
+                             {k: w})[k]
+            e_cpu = max_rel({k: runs[("cpu", torch.float32)][k]}, {k: w})[k]
+            print(f"  {k:15s} card f64 vs cpu f64 {e64:.3e} (tol "
+                  f"{tol64:g}); f32 vs cpu f64: card {e_card:.3e}, cpu "
+                  f"{e_cpu:.3e} (tol {mult:g} x cpu + {floor:g})")
+            if not e64 <= tol64:
+                bad.append(f"{k} f64")
+            if not e_card <= mult * e_cpu + floor:
+                bad.append(f"{k} f32")
+        if bad:
+            raise AssertionError(f"{what}, card vs CPU: {bad}")
+
+    @staticmethod
+    def dclaw_draws(spec, where, dtype):
+        """A DClaw "reset" draw (B = 1) from ``spec``."""
+        return {k: torch.tensor([spec[k]], dtype=dtype, device=where)
+                for k in ("noise", "damping", "radius", "dxy")}
+
+    def dclaw(self, dev):
+        """Slice 10: DClaw through the registry and the gym wrapper, every
+        observation read by K4R; then card against CPU."""
+        from tactilesimulation_tpu_torch import envs
+        from tactilesimulation_tpu_torch.envs import dclaw_rotate
+        from tactilesimulation_tpu_torch.envs.gym_wrapper import GymEnv
+        from tactilesimulation_tpu_torch.ops import (dense_contact,
+                                                    tactile_query)
+        env = envs.make("TactileRotation-v1", observation_type="tactile",
+                        device=dev, dtype=torch.float32, seed=0)
+        gym = GymEnv(env, seed=0)
+        rng = np.random.RandomState(0)
+        contact = self.dclaw_draws(DCLAW_CONTACT, dev, torch.float32)
+
+        # (a) the main path
+        dense_contact.reset_counts()
+        t0 = time.perf_counter()
+        obs = [gym.reset()]
+        torch.cuda.synchronize()
+        reset_s, step_s, dones = [time.perf_counter() - t0], [], 0
+        for _ in range(DCLAW_STEPS):
+            t0 = time.perf_counter()
+            o, _, done, _ = gym.step(rng.uniform(-1.0, 1.0, env.ndof_u))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            obs.append(o)
+            if done:
+                dones += 1
+                t0 = time.perf_counter()
+                obs.append(gym.reset())
+                torch.cuda.synchronize()
+                reset_s.append(time.perf_counter() - t0)
+        # the recorded contact state: the cap's rim under every fingertip
+        env._draw = lambda what, B: contact
+        try:
+            obs.append(gym.reset())
+        finally:
+            del env._draw
+        torch.cuda.synchronize()
+        reads, points = dense_contact.read_launches, dense_contact.launches
+        lanes = self.lane_kernels_loaded()
+        size = 18 + 3 * dclaw_rotate.ROWS * dclaw_rotate.COLS * 3
+        print(f"  TactileRotation f32 through GymEnv: {DCLAW_STEPS} steps "
+              f"in {sum(step_s):.2f} s ({DCLAW_STEPS / sum(step_s):.4f} env "
+              f"steps/s, {sum(step_s) / DCLAW_STEPS * 1e3:.1f} ms a step of "
+              f"{env.frame_skip} substeps), {len(reset_s)} resets "
+              f"({dones} on done) {np.mean(reset_s) * 1e3:.1f} ms each; read "
+              f"kernel launches {reads} (want {len(obs)}: one per "
+              f"observation), points entry {points}, K1-K3 libraries "
+              f"loaded {lanes} (want none) [{self.card}]")
+        if (reads, points) != (len(obs), 0) or lanes:
+            raise AssertionError("the observations did not read through "
+                                 "K4R as counted")
+        if not all(o.shape == (size,) and np.isfinite(o).all()
+                   for o in obs):
+            raise AssertionError("an observation is not finite or not of "
+                                 f"shape ({size},)")
+        if not np.abs(obs[-1][18:]).max() > 0:
+            raise AssertionError("no fingertip touches the cap at the "
+                                 "recorded contact state")
+        row = self.kernel_rows.setdefault("K4R", {})
+        row["launches"] = row.get("launches", 0) + reads
+        state = gym._state
+        model = env._model_for(state.extras)
+        q = state.sim.q
+        target = env.target(q, torch.zeros(9, dtype=q.dtype, device=dev))
+        substep = lambda: env._step_sim(model, state.sim, target)
+        with torch.no_grad():
+            substep()
+            with AtenCount() as count:
+                substep()
+        print(f"  eager aten ops per substep {count.n} [{self.card}]")
+        self.device_share(substep, "one DClaw substep")
+        e64 = dclaw_rotate.make(device=dev, dtype=torch.float64)
+        e64._draw = lambda what, B: self.dclaw_draws(DCLAW_CONTACT, dev,
+                                                     torch.float64)
+        with torch.no_grad():
+            s64, _ = e64.reset()
+            got = tactile_query.tactile_field(env.struct, model, q,
+                                              torch.zeros_like(q))
+        again = env._get_obs(model, q, env._images(got)).cpu().numpy()
+        if not np.abs(again - obs[-1]).max() <= 1e-6 * np.abs(again).max():
+            raise AssertionError("the contact observation is not its read")
+        self.env_read_check("the contact state's read", env.struct, model,
+                            e64._model_for(s64.extras), q,
+                            torch.zeros_like(q), got)
+
+        # (b) card against CPU
+        self.dclaw_cross(dev)
+
+    def dclaw_cross(self, dev):
+        """From DCLAW_CONTACT, a reset and the steps DCLAW_CROSS_US: the
+        card against the CPU (float64 within ADJ_F64_TOL of scale, float32
+        held to the CPU float32 run's distance from float64); then resets
+        with the radii DCLAW_RADII on the card, float64: each read equal
+        to the plain version on its own Model, through a plan of its
+        own."""
+        from tactilesimulation_tpu_torch.envs import dclaw_rotate
+        from tactilesimulation_tpu_torch.ops import (dense_contact,
+                                                    tactile_query)
+        cpu = torch.device("cpu")
+        runs, flags = {}, {}
+        for where, dtype in ((dev, torch.float64), (cpu, torch.float64),
+                             (dev, torch.float32), (cpu, torch.float32)):
+            env = dclaw_rotate.make("tactile", device=where, dtype=dtype)
+            d = self.dclaw_draws(DCLAW_CONTACT, where, dtype)
+            env._draw = lambda what, B, d=d: d
+            dense_contact.reset_counts()
+            t0 = time.perf_counter()
+            out, rewards, fl = {}, [], []
+            with torch.no_grad():
+                state, out["obs 0"] = env.reset()
+                for i, u in enumerate(DCLAW_CROSS_US):
+                    state, out[f"obs {i + 1}"], r, done, info = env.step(
+                        state, torch.tensor(u, dtype=dtype, device=where))
+                    rewards.append(r)
+                    fl.append((bool(done), bool(info["success"])))
+            out.update(q=state.sim.q, qdot=state.sim.qdot,
+                       reward=torch.stack(rewards))
+            label = "card" if where is dev else "cpu"
+            runs[(label, dtype)] = {k: v.double().cpu()
+                                    for k, v in out.items()}
+            flags[(label, dtype)] = tuple(fl)
+            reads = dense_contact.read_launches
+            n = 1 + len(DCLAW_CROSS_US)
+            print(f"  {label} {dtype}: reset + {n - 1} steps in "
+                  f"{time.perf_counter() - t0:.2f} s, read kernel launches "
+                  f"{reads}, (done, success) {fl}")
+            if reads != (n if where.type == "cuda" else 0):
+                raise AssertionError(f"{label}: {reads} read launches for "
+                                     f"{n} reads")
+        self.compare_runs(runs, "DClaw", ADJ_F64_TOL)
+        if not float(runs[("cpu", torch.float64)]["obs 0"][18:].abs()
+                     .max()) > 0:
+            raise AssertionError("DClaw: the fingertips miss the cap")
+        if len(set(flags.values())) != 1:
+            raise AssertionError(f"DClaw: flags differ {flags}")
+
+        env = dclaw_rotate.make("tactile", device=dev, dtype=torch.float64)
+        plans = []
+        for radius in DCLAW_RADII:
+            env._draw = lambda what, B, r=radius: self.dclaw_draws(
+                dict(DCLAW_CONTACT, radius=r), dev, torch.float64)
+            dense_contact.reset_counts()
+            with torch.no_grad():
+                state, _ = env.reset()
+            reads = dense_contact.read_launches
+            model = env._model_for(state.extras)
+            q = state.sim.q
+            want = tactile_query.tactile_field_ref(env.struct, model, q,
+                                                   torch.zeros_like(q))
+            err = float((state.extras.tactile_imgs
+                         - env._images(want)).abs().max())
+            scale = float(want.abs().max())
+            plans.append(tactile_query.read_plan(env.struct, model))
+            print(f"  reset with the cap's radius {radius}: "
+                  f"{int((want.abs().sum(dim=1) > 0).sum())} rows in "
+                  f"contact, the images {err:.3e} from the plain version's "
+                  f"(scale {scale:.3e}), read launches {reads}")
+            if reads != 1 or not err <= READ_TOL[torch.float64] * scale:
+                raise AssertionError(f"radius {radius}: the read is {err:.3e}"
+                                     f" off the plain version, {reads} "
+                                     "launches")
+        if plans[0] is plans[1]:
+            raise AssertionError("two caps read through one plan")
+
     def _card_vs_cpu(self, runs, what):
         """Card float64 within ADJ_F64_TOL of the CPU's; card float32 within
         ROLL_F32_VS_F64 of the CPU float32 run's distance from float64."""
@@ -2956,7 +3433,63 @@ class Smoke:
             raise AssertionError(f"{what}, card vs CPU: {bad}")
 
 
-def main() -> int:
+class Child:
+    """CHILD_PHASES in a second process (``chip_smoke.py --child OUT
+    PHASE...``), its output kept in a temporary file until ``join``."""
+
+    def __init__(self, phases):
+        fd, self.out = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        self.log = tempfile.TemporaryFile(mode="w+")
+        here = os.path.abspath(__file__)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-u", here, "--child", self.out, *phases],
+            stdout=self.log, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(here))
+
+    def join(self, smoke, timeout):
+        """Wait for the child, print its output, take its failed phases
+        and its launch counts into ``smoke``."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+            with open(self.out) as fp:
+                res = json.load(fp)
+        finally:
+            self.stop()
+            self.log.seek(0)
+            print(self.log.read(), end="", flush=True)
+            self.log.close()
+            os.remove(self.out)
+        smoke.failed.extend(res["failed"])
+        for key, n in res["launches"].items():
+            row = smoke.kernel_rows.setdefault(key, {})
+            row["launches"] = row.get("launches", 0) + n
+        if rc != 0 and not res["failed"]:
+            raise RuntimeError(f"the child process exited with {rc}")
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def child_main(dev, out, phases) -> int:
+    """Run ``phases`` and write {"failed": [...], "launches": {key: n}} to
+    ``out``."""
+    s = Smoke()
+    s.phase("device", s.device)
+    if not s.failed:
+        for name in phases:
+            s.phase(name, getattr(s, name), dev)
+    launches = {k: r["launches"] for k, r in s.kernel_rows.items()
+                if "launches" in r}
+    with open(out, "w") as fp:
+        json.dump({"failed": s.failed, "launches": launches}, fp)
+    return 1 if s.failed else 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
               file=sys.stderr)
@@ -2964,6 +3497,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import tactilesimulation_tpu_torch  # noqa: F401  (fails outside the repo)
     dev = torch.device("cuda", 0)
+    if argv[:1] == ["--child"]:
+        return child_main(dev, argv[1], argv[2:])
     t0 = time.perf_counter()
     s = Smoke()
     s.phase("device", s.device)
@@ -2972,13 +3507,22 @@ def main() -> int:
     s.phase("build", s.build)
     if not s.failed:
         s.phase("kernels", s.kernels, dev)
-        s.phase("slice", s.slice, dev)
-        s.phase("train", s.train, dev)
-        s.phase("cross", s.cross, dev)
-        s.phase("rolling", s.rolling, dev)
-        s.phase("adjoint", s.adjoint, dev)
-        s.phase("ppo", s.ppo, dev)
-        s.phase("insertion", s.insertion, dev)
+        # the env phases beside the rest (after the kernels' timings)
+        child = Child(CHILD_PHASES)
+        try:
+            s.phase("slice", s.slice, dev)
+            s.phase("train", s.train, dev)
+            s.phase("cross", s.cross, dev)
+            s.phase("rolling", s.rolling, dev)
+            s.phase("adjoint", s.adjoint, dev)
+            s.phase("ppo", s.ppo, dev)
+            s.phase("insertion", s.insertion, dev)
+            print(f"== waiting for {', '.join(CHILD_PHASES)} (started after "
+                  "kernels, in a second process)", flush=True)
+            s.phase("child", child.join, s,
+                    max(30.0, CHILD_DEADLINE_S - (time.perf_counter() - t0)))
+        finally:
+            child.stop()
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failed:
         print(f"FAILED phases: {s.failed}")

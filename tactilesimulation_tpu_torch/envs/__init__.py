@@ -4,7 +4,7 @@ Insertion-v3, with max_episode_steps 10/100/200/15).
 
 ``make(name, **kwargs)`` passes ``kwargs`` (``observation_type``,
 ``device``, ``dtype``, ``seed`` and the env's options) to the env's
-``make``. TactilePush and TactileInsertion are ported; the other ids raise.
+``make``.
 """
 
 from __future__ import annotations
@@ -34,15 +34,17 @@ def _insertion(**kw):
     return tactile_insertion.make(**kw)
 
 
-def _not_ported(module):
-    def factory(**_):
-        raise NotImplementedError(
-            f"envs/{module}.py is not ported yet (ROADMAP.md queue 1, "
-            "item 7: the other envs)")
-    return factory
+def _grasp(**kw):
+    from . import stable_grasp
+    return stable_grasp.make(**kw)
 
 
-register("StableGrasp-v1", _not_ported("stable_grasp"), 10)
+def _dclaw(**kw):
+    from . import dclaw_rotate
+    return dclaw_rotate.make(**kw)
+
+
+register("StableGrasp-v1", _grasp, 10)
 register("TactilePush-v1", _push, 100)
-register("TactileRotation-v1", _not_ported("dclaw_rotate"), 200)
+register("TactileRotation-v1", _dclaw, 200)
 register("Insertion-v3", _insertion, 15)

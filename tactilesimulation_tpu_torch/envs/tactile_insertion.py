@@ -41,8 +41,6 @@ differentiable ``dynamics.tactile_field`` otherwise.
 from __future__ import annotations
 
 import dataclasses
-import hashlib
-import json
 import math
 import os
 from typing import Tuple
@@ -53,15 +51,14 @@ import torch
 from ..model import task_scenes
 from ..ops import tactile_query
 from ..sim import dynamics, integrators, spatial
+from . import start_pose
 from .base import EnvState, FunctionalEnv, resolve_device
 
 ROWS, COLS = 13, 10
 EXEC_STEPS = 45
 SETTLE_STAGES = (100, 100, 300)   # grasp, close, lift
 SETTLE_HOLD = 500
-Q_INIT_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "data", "insertion_q_init.json")
-CACHE_DIR = os.path.join("~", ".cache", "tactilesimulation_tpu_torch")
+Q_INIT_FILE = os.path.join(start_pose.DATA_DIR, "insertion_q_init.json")
 DR_NAMES = ("pair_kn", "pair_kt", "pair_mu", "pair_damping", "tac_kn",
             "tac_kt", "tac_mu", "tac_damping")
 
@@ -87,17 +84,6 @@ class InsertionExtras:
 # ---------------------------------------------------------------------------
 # the settled start pose
 # ---------------------------------------------------------------------------
-
-def model_key(model) -> str:
-    """The JAX package's cache key of a Model: sha256 over the leaves in
-    field order, each as float64 bytes and its shape, first 16 hex digits."""
-    hsh = hashlib.sha256()
-    for f in dataclasses.fields(model):
-        arr = np.asarray(getattr(model, f.name).detach().cpu().numpy(),
-                         np.float64)
-        hsh.update(arr.tobytes() + str(arr.shape).encode())
-    return hsh.hexdigest()[:16]
-
 
 def settle(struct, model, step_sim=None, stages=SETTLE_STAGES,
            hold=SETTLE_HOLD):
@@ -143,45 +129,22 @@ def settle(struct, model, step_sim=None, stages=SETTLE_STAGES,
 
 def shipped_q_init():
     """{model key: (dtype name, q_init list)} of the shipped file."""
-    if not os.path.exists(Q_INIT_FILE):
-        return {}
-    with open(Q_INIT_FILE) as fp:
-        return {k: (v["dtype"], v["q_init"]) for k, v in json.load(fp).items()}
+    return start_pose.shipped(Q_INIT_FILE)
 
 
 def initial_pose(struct, model, step_sim=None):
     """The settled start pose of ``model``: from the shipped file, else
     from the disk cache, else settled now (and cached)."""
-    key = model_key(model)
-    hit = shipped_q_init().get(key)
-    if hit is not None:
-        return torch.tensor(hit[1], dtype=model.dtype, device=model.device)
-    cache = os.path.join(os.path.expanduser(CACHE_DIR),
-                         f"insertion_qinit_{key}.npy")
-    if os.path.exists(cache):
-        return torch.as_tensor(np.load(cache), dtype=model.dtype,
-                               device=model.device)
-    q = settle(struct, model, step_sim)
-    os.makedirs(os.path.dirname(cache), exist_ok=True)
-    np.save(cache, q.cpu().numpy())
-    return q
+    return start_pose.load_or_settle(
+        Q_INIT_FILE, "insertion_qinit", model,
+        lambda: settle(struct, model, step_sim))
 
 
 def write_q_init_file(path=Q_INIT_FILE):
     """Settle the bundled scene's float64 and float32 models on the CPU
     and write their start poses to ``path`` (minutes per model)."""
     struct, model = task_scenes.tactile_insertion()
-    out = {}
-    for dtype in (torch.float64, torch.float32):
-        m = model.to("cpu", dtype)
-        q = settle(struct, m)
-        out[model_key(m)] = {"dtype": str(dtype).split(".")[-1],
-                             "q_init": [float(x) for x in q.tolist()]}
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "w") as fp:
-        json.dump(out, fp, indent=1)
-        fp.write("\n")
-    return out
+    return start_pose.write_file(path, model, lambda m: settle(struct, m))
 
 
 # ---------------------------------------------------------------------------

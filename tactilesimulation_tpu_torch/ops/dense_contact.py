@@ -291,8 +291,11 @@ class ReadPlan:
         self._stamp = [(getattr(model, k), getattr(model, k)._version)
                        for k in READ_LEAVES]
 
-    def fresh(self) -> bool:
-        return all(getattr(self.model, k) is t and t._version == ver
+    def fresh(self, model=None) -> bool:
+        """True if ``model`` (default: the one the plan was made from)
+        holds the very leaves the plan packed, unedited."""
+        model = self.model if model is None else model
+        return all(getattr(model, k) is t and t._version == ver
                    for k, (t, ver) in zip(READ_LEAVES, self._stamp))
 
 

@@ -61,11 +61,13 @@ def may_read(struct, model, *xs) -> bool:
 
 def read_plan(struct, model):
     """The read kernel's ``ReadPlan`` of (struct, model), made again when
-    one of the model leaves it packed was replaced or edited in place."""
-    key = (id(struct), id(model))
+    one of the model leaves it packed was replaced or edited in place.
+    Models that share those leaves share the plan (an episode's Model that
+    edits only masses reads with the plan of the one it was made from)."""
+    key = (id(struct),) + tuple(id(getattr(model, k))
+                                for k in dense_contact.READ_LEAVES)
     plan = _PLANS.get(key)
-    if (plan is None or plan.struct is not struct or plan.model is not model
-            or not plan.fresh()):
+    if plan is None or plan.struct is not struct or not plan.fresh(model):
         plan = dense_contact.ReadPlan(struct, model)
         _PLANS.pop(key, None)
         if len(_PLANS) >= _MAX_PLANS:

@@ -53,17 +53,38 @@ def _keep(x):
     return x
 
 
+def _caller_hooks() -> bool:
+    """True if a caller's saved-tensor hooks are active (a non-reentrant
+    checkpoint's, say), and where torch cannot tell."""
+    top = getattr(torch._C._autograd, "_top_saved_tensors_default_hooks",
+                  None)
+    if top is None:
+        return True
+    try:
+        return top(False) is not None
+    except TypeError:
+        return top() is not None
+
+
 @contextlib.contextmanager
 def inner_graph():
     """Grad mode for a graph that is built and differentiated on the spot.
 
-    Its saved tensors are kept as they are, past any saved-tensor hooks of
-    the caller: under ``torch.utils.checkpoint(use_reentrant=False)`` a
-    tensor unpacked before the backward would rerun the checkpointed
-    function up to that point, once per inner ``autograd.grad``."""
-    with torch.enable_grad(), \
-            torch.autograd.graph.saved_tensors_hooks(_keep, _keep):
-        yield
+    Where a caller's saved-tensor hooks are active, its saved tensors are
+    kept as they are, past those hooks: under
+    ``torch.utils.checkpoint(use_reentrant=False)`` a tensor unpacked
+    before the backward would rerun the checkpointed function up to that
+    point, once per inner ``autograd.grad``. Elsewhere autograd saves them
+    itself: a hook that keeps a tensor holds an op's output, and through
+    it the op's own node, a reference cycle that the garbage collector
+    cannot see, so each graph built under it would stay in memory."""
+    if _caller_hooks():
+        with torch.enable_grad(), \
+                torch.autograd.graph.saved_tensors_hooks(_keep, _keep):
+            yield
+    else:
+        with torch.enable_grad():
+            yield
 
 
 _DOFS = {}

@@ -11,11 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (ACTOR_CFG, ADJ_F64_TOL, K1T_TOL, K1_SCENES,
-                        K23_F32_VS_F64, K23_F64_TOL, K4_TOL, READ_SCENES,
-                        READ_TOL, Smoke, block_chain, contact_state,
-                        facade_backward, max_rel, pair_wrench_inputs,
-                        read_case)
+from chip_smoke import (ACTOR_CFG, ADJ_F64_TOL, DCLAW_CONTACT, DCLAW_RADII,
+                        GRASP_SHORT, K1T_TOL, K1_SCENES, K23_F32_VS_F64,
+                        K23_F64_TOL, K4_TOL, READ_SCENES, READ_TOL, Smoke,
+                        block_chain, contact_state, facade_backward, max_rel,
+                        pair_wrench_inputs, read_case, read_f64_tol)
 from tactilesimulation_tpu_torch import envs
 from tactilesimulation_tpu_torch.algorithms.ppo import PPO
 from tactilesimulation_tpu_torch.envs import tactile_push, tactile_push_lanes
@@ -637,3 +637,61 @@ def test_insertion_lane_execute_matches_plain_route(card, B, monkeypatch):
             pw.twin_vjps + pw.twin_recomputes) == (3 + 10 * 11 + 2, 3 * 12,
                                                    0)
     assert bool(torch.isfinite(q_k).all() and torch.isfinite(obs_k).all())
+
+
+def test_stable_grasp_capture_reads_through_the_kernel(card, monkeypatch):
+    """StableGrasp on the card, float64, on the short schedule GRASP_SHORT
+    from the draws of GRASP_DRAWS: the reset's script reads its capture
+    through the read kernel once (the points entry never), equal to the
+    plain version at the recorded state (``read_f64_tol``) with rows in
+    contact."""
+    from tactilesimulation_tpu_torch.envs import stable_grasp
+    monkeypatch.setattr(stable_grasp, "STAGE_STEPS", list(GRASP_SHORT[0]))
+    monkeypatch.setattr(stable_grasp, "CAPTURE_FRAME", GRASP_SHORT[1])
+    env = stable_grasp.make(device=card, dtype=torch.float64)
+    draws = Smoke.grasp_draws(card, torch.float64)
+    env._draw = lambda what, B: draws
+    dense_contact.reset_counts()
+    with torch.no_grad():
+        state, obs = env.reset()
+    assert (dense_contact.read_launches, dense_contact.launches) == (1, 0)
+    ex = state.extras
+    model = env._model_for(ex)
+    want = tactile_query.tactile_field_ref(env.struct, model, ex.cap_q,
+                                           ex.cap_qdot)
+    assert float(want.abs().max()) > 0, "no row in contact at the capture"
+    # light contact (about 1e-3 N): held as the smoke holds an env's read
+    tol, _ = read_f64_tol(env.struct, model, ex.cap_q, ex.cap_qdot, want)
+    assert float((ex.cap_field - want).abs().max()) <= tol
+    assert obs.shape == (4, 13, 10) and bool(torch.isfinite(obs).all())
+
+
+def test_dclaw_resets_read_through_the_kernel(card):
+    """DClaw on the card, float64: each reset's observation is one read
+    launch, equal to the plain version on that episode's Model: the cap of
+    DCLAW_CONTACT under every fingertip, then the radii DCLAW_RADII, each
+    through a plan of its own."""
+    from tactilesimulation_tpu_torch.envs import dclaw_rotate
+    env = dclaw_rotate.make(device=card, dtype=torch.float64)
+    plans = []
+    for radius in (DCLAW_CONTACT["radius"],) + DCLAW_RADII:
+        draws = Smoke.dclaw_draws(dict(DCLAW_CONTACT, radius=radius), card,
+                                  torch.float64)
+        env._draw = lambda what, B, d=draws: d
+        dense_contact.reset_counts()
+        with torch.no_grad():
+            state, obs = env.reset()
+        assert dense_contact.read_launches == 1
+        model = env._model_for(state.extras)
+        q = state.sim.q
+        want = tactile_query.tactile_field_ref(env.struct, model, q,
+                                               torch.zeros_like(q))
+        scale = float(want.abs().max())
+        err = float((state.extras.tactile_imgs - env._images(want)).abs()
+                    .max())
+        assert err <= READ_TOL[torch.float64] * scale
+        if radius == DCLAW_CONTACT["radius"]:
+            assert bool((state.extras.tactile_imgs.abs().sum(dim=(1, 2, 3))
+                         > 0).all()), "a fingertip misses the cap"
+        plans.append(tactile_query.read_plan(env.struct, model))
+    assert len({id(p) for p in plans}) == len(plans)

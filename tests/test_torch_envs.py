@@ -36,8 +36,10 @@ from tactilesimulation_tpu.envs import tactile_insertion as jax_ti
 from tactilesimulation_tpu.envs import tactile_push as jax_tp
 from tactilesimulation_tpu.sim import dynamics as jax_dynamics
 from tactilesimulation_tpu_torch import envs
+from tactilesimulation_tpu_torch.envs import dclaw_rotate as torch_dc
 from tactilesimulation_tpu_torch.envs import gym_wrapper
 from tactilesimulation_tpu_torch.envs import pendulum as torch_pend
+from tactilesimulation_tpu_torch.envs import stable_grasp as torch_sg
 from tactilesimulation_tpu_torch.envs import tactile_insertion as torch_ti
 from tactilesimulation_tpu_torch.envs import tactile_push as torch_tp
 from tactilesimulation_tpu_torch.envs import tactile_push_lanes
@@ -315,9 +317,19 @@ def test_registry():
     assert isinstance(env, torch_tp.TactilePushEnv)
     assert env.max_episode_steps == 100 and env.ndof_u == 3
     assert env.obs_size() == (6,)
-    for name in ("StableGrasp-v1", "TactileRotation-v1"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            envs.make(name, device="cpu")
+    assert not hasattr(envs, "_not_ported")
+    # StableGrasp-v1 builds from its shipped start pose: no settle runs
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch_sg, "settle", _no_settle)
+        grasp = envs.make("StableGrasp-v1", device="cpu", dtype=F64)
+    assert isinstance(grasp, torch_sg.StableGraspEnv)
+    assert grasp.max_episode_steps == 10 and grasp.ndof_u == 1
+    assert grasp.obs_size() == (4, 13, 10)
+    claw = envs.make("TactileRotation-v1", observation_type="no_tactile",
+                     device="cpu", dtype=F64)
+    assert isinstance(claw, torch_dc.DClawRotateEnv)
+    assert claw.max_episode_steps == 200 and claw.ndof_u == 9
+    assert claw.obs_size() == (18,)
     # Insertion-v3 builds from the shipped start pose: no settle runs
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch_ti, "settle", _no_settle)

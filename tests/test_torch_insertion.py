@@ -34,6 +34,7 @@ import torch
 
 from tactilesimulation_tpu.envs import tactile_insertion as jti
 from tactilesimulation_tpu.envs import tactile_insertion_lanes as jtil
+from tactilesimulation_tpu_torch.envs import start_pose
 from tactilesimulation_tpu_torch.envs import tactile_insertion as tti
 from tactilesimulation_tpu_torch.envs import tactile_insertion_lanes as ttil
 from tactilesimulation_tpu_torch.model import task_scenes
@@ -58,7 +59,7 @@ OPTIONS = {
 
 def shipped_q_init():
     _, model = task_scenes.tactile_insertion()
-    key = tti.model_key(model.to("cpu", F64))
+    key = start_pose.model_key(model.to("cpu", F64))
     with open(tti.Q_INIT_FILE) as fp:
         return np.array(json.load(fp)[key]["q_init"])
 

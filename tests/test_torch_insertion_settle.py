@@ -34,6 +34,7 @@ from tactilesimulation_tpu.envs import tactile_insertion as jti
 from tactilesimulation_tpu.model import task_scenes as jax_scenes
 from tactilesimulation_tpu.sim import dynamics as jax_dynamics
 from tactilesimulation_tpu.sim import integrators as jax_integrators
+from tactilesimulation_tpu_torch.envs import start_pose
 from tactilesimulation_tpu_torch.envs import tactile_insertion as tti
 from tactilesimulation_tpu_torch.model import task_scenes
 
@@ -60,7 +61,7 @@ def shipped():
         entries = json.load(fp)
     out = {}
     for dtype in (torch.float64, torch.float32):
-        entry = entries[tti.model_key(model.to("cpu", dtype))]
+        entry = entries[start_pose.model_key(model.to("cpu", dtype))]
         out[entry["dtype"]] = np.array(entry["q_init"])
     return out
 
