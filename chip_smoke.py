@@ -157,9 +157,7 @@ seconds):
               kernel 2 per single-instance
               script, the points entry and K1 never.
 11. grasp   - slice 10, StableGrasp (``envs.make("StableGrasp-v1")``,
-              tactile_map, f32, through ``GymEnv``), in a second process
-              started after kernels (CHILD_PHASES, its output printed
-              when it is joined after insertion): (a) the reset's
+              tactile_map, f32, through ``GymEnv``): (a) the reset's
               180-substep script from the shipped start pose, and one
               step's script if a probe substep predicts it within
               GRASP_BUDGET_S: the read kernel once per script (its
@@ -169,7 +167,8 @@ seconds):
               substep, eager aten ops and the busy share over a substep;
               the capture's read held to the plain version (the float64
               read at the recorded state on the float64 model to
-              READ_TOL, the float32 one by PPO_READ_F32_VS_F64); (b) a
+              READ_TOL, the float32 one by PPO_READ_F32_VS_F64);
+              (b, grasp_cross) a
               reset and one step on GRASP_SHORT from GRASP_DRAWS, card
               against CPU: densities, poses, both captured fields and
               obs, the reward (float64 within ADJ_F64_TOL of scale,
@@ -177,7 +176,7 @@ seconds):
               distance from float64), success equal;
 12. dclaw   - slice 10, DClaw cap rotation
               (``envs.make("TactileRotation-v1")``, tactile, f32, through
-              ``GymEnv``), in the same second process: (a) a reset and
+              ``GymEnv``): (a) a reset and
               DCLAW_STEPS random steps with reset-on-done, then a reset
               onto DCLAW_CONTACT: the read kernel once per observation,
               the points entry and K1-K3 never; finite obs of 3,618, in
@@ -188,6 +187,48 @@ seconds):
               qdot, every obs, the rewards; flags equal); then resets with
               the radii DCLAW_RADII on the card: each read equal to the
               plain version on its own Model, through a plan of its own.
+13. optim   - slice 11, the optimisers:
+              (a, optim_cli) the GD CLI
+              (``examples/train_tactile_push_gd.py``) on gd_tactile.yaml at
+              its widths (E = 16, H = 100, tactile_flatten, [64, 64] elu,
+              f32), num_epochs cut to OPT_EPOCHS: K2 = K3 = H, K1 = 1 + H,
+              K1T = H - 1 an epoch, the twin never; loss finite, the
+              parameters moved, a model saved; s per epoch; then
+              ``--play --checkpoint`` for one single-instance game, its
+              horizon cut by a probe step to OPT_PLAY_BUDGET_S: the read
+              kernel once per observation (1 + steps), the points entry
+              and K1-K3 never; ms per play step;
+              (b, optim_solver) TactilePushLanes with the solver options
+              OPT_SOLVERS (refresh 1 and 2, exact, fwdfac, refine3, stale)
+              at B_CROSS, H_CROSS with cross's draws and actor: the card
+              f32 against the CPU f64 (values and the BPTT gradient: exact
+              and fwdfac at cross's bars, fwdfac against exact on the card
+              to OPT_FWDFAC_TOL of scale, stale and refine3 within
+              ROLL_F32_VS_F64 of the CPU f32 run's distance from f64); K1
+              and K1T launches as ``lanes_launches`` derives them, K2/K3
+              and the twin never; the memory a rollout of OPT_LANES_MEM_H
+              env steps keeps after its forward and its peak, remat on
+              and off; refresh 1 exact at B_MAIN over one env step
+              forward and backward: ms (eager ops from the first
+              option's run), the busy share over a substep's chord
+              factor;
+              (c, optim_traj) the trajectory optimisers in float64 on the
+              card: the pendulum protocol OPT_PEND at OPT_PEND_H (Adam
+              shooting against iLQR at a quarter of its iterations, as
+              many as a probe fits), card histories and controls against
+              the CPU's to OPT_TRAJ_REL; TactilePush with JAX's test cost
+              (OPT_PUSH, H cut by a probe), card against CPU; shooting
+              over OPT_MEM_H steps, remat on (3 iterations) and off: the
+              memory kept after the forward, the peak and what an
+              iteration leaves, above what was allocated before; no
+              kernel launches (the single-instance core, no tactile
+              read); s per iteration of each.
+
+Phases 4-7 run in this process (MAIN_PHASES); the others, in the groups of
+WORKERS, each in a process of its own (``chip_smoke.py --child OUT PHASE...``,
+which also runs a group alone), all started after kernels and joined after
+rolling, each one's output printed when it is joined; the phase ``join``
+fails if a worker is still running DEADLINE_S into the run.
 
 The line before the card's line is the kernel table as JSON; the last line
 is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -384,12 +425,23 @@ INS_F64_TOL = ADJ_F64_TOL
 # version is within 1e-5 of float64, which parts by 2.0e-5 on another
 INS_K1_F32_VS_F64 = 3.0
 INS_SETTLE_CUT = ((2, 2, 2), 2)
-# the grasp and dclaw phases run in a second process beside the phases after
-# kernels (their eager dispatch is host work on another core; their device
-# work is a small share of a substep): CHILD_PHASES, joined before the
-# kernel table is printed
-CHILD_PHASES = ("grasp", "dclaw")
-CHILD_DEADLINE_S = 1140.0      # the child is stopped at this time of the run
+# after kernels, MAIN_PHASES run in this process and each group of WORKERS
+# in a process of its own beside it, all started together and joined
+# before the kernel table is printed. Every phase is host work (eager
+# dispatch, each op a launch; its device work a small share of its time),
+# so the groups are balanced by their seconds on the card (whole groups
+# 230-360 s on a run whose phases ran one after another 997.5 s), and each
+# process then runs WORKER_THREADS CPU threads (the main process
+# MAIN_THREADS: rolling's float64 CPU run at 200 x 200) so that the seven
+# share the host's cores without oversubscribing them. A worker still
+# running at DEADLINE_S into the run is stopped and fails its group.
+MAIN_PHASES = ("slice", "train", "cross", "rolling")
+WORKERS = (("insertion",), ("grasp",), ("dclaw", "grasp_cross"),
+           ("ppo", "adjoint"), ("optim_cli", "optim_traj"),
+           ("optim_solver",))
+WORKER_THREADS = 1
+MAIN_THREADS = 2
+DEADLINE_S = 1140.0
 # the grasp phase: StableGrasp-v1 (tactile_map, f32) through GymEnv; the
 # reset's full script (180 substeps) always runs, a step's full script only
 # when a probe substep predicts it within GRASP_BUDGET_S. Card against CPU
@@ -418,6 +470,48 @@ DCLAW_CROSS_US = ((0.4, -0.3, 0.8, 0.1, 0.5, -0.6, 0.2, -0.2, 0.9),
                   (1.6, -0.5, 0.3, -1.3, 0.2, 0.7, 0.0, 1.2, -0.4),
                   (-0.2, 0.1, 0.0, 0.3, -0.4, 0.2, 0.5, 0.0, -0.1))
 DCLAW_RADII = (0.03, 0.07)
+# the optim phases (slice 11), in WORKERS:
+# (a) the GD CLI at gd_tactile.yaml's widths, num_epochs cut to OPT_EPOCHS;
+# --play's horizon cut so that a probe env step predicts OPT_PLAY_BUDGET_S
+OPT_EPOCHS = 1
+OPT_PLAY_BUDGET_S = 12.0
+# (b) TactilePushLanes at B_CROSS lanes, H_CROSS env steps, cross's draws
+# and actor, for every (refresh, bwd_mode) of OPT_SOLVERS, card f32 against
+# CPU f64 (exact, fwdfac: cross's bars, both against the CPU's exact run:
+# fwdfac factors the same matrix; fwdfac also against exact on the card,
+# OPT_FWDFAC_TOL of scale; stale, refine3: ROLL_F32_VS_F64 of the CPU f32
+# run's distance); H cut to 1 when the first option's card run predicts
+# the rest past OPT_SOLVER_BUDGET_S; refresh 1 exact timed at B_MAIN over
+# one env step
+OPT_SOLVERS = tuple((r, m) for r in (1, 2)
+                    for m in ("exact", "fwdfac", "refine3", "stale"))
+OPT_FWDFAC_TOL = 1e-5
+OPT_SOLVER_BUDGET_S = 120.0
+# and the lanes stepper's memory with and without remat over
+# OPT_LANES_MEM_H env steps (refresh 1 exact, B_CROSS lanes): remat keeps
+# less after the forward and peaks no higher
+OPT_LANES_MEM_H = 2
+# (c) trajectory optimisation, float64 on the card against the CPU to
+# OPT_TRAJ_REL (relative): the pendulum protocol of the JAX package's
+# tests/test_ilqr.py (H, Adam iterations, iLQR iterations, lr) with H cut
+# to OPT_PEND_H and the iterations, in the protocol's 4:1, to what a probe
+# (one Adam and one iLQR iteration at OPT_PEND_H, timed on the card) fits
+# in OPT_PEND_BUDGET_S of the card's time; TactilePush (its cost, H, 1
+# iLQR iteration and 2 Adam iterations; the full protocol OPT_PUSH_FULL
+# only where the probe fits it in OPT_PUSH_BUDGET_S); shooting on
+# TactilePush over OPT_MEM_H steps, remat on (3 iterations) and off (1):
+# the memory the graph keeps after the forward and the peak, above what
+# was allocated before: remat keeps less and peaks no higher, and its peak
+# after 3 iterations is within OPT_MEM_GROWTH of its peak after 1
+OPT_PEND = {"H": 30, "adam": 80, "ilqr": 20, "lr": 0.1}
+OPT_PEND_H = 10
+OPT_PEND_BUDGET_S = 150.0
+OPT_PUSH = {"H": 8, "adam": 2, "ilqr": 1, "lr": 0.05}
+OPT_PUSH_FULL = {"adam": 40, "ilqr": 10}
+OPT_PUSH_BUDGET_S = 70.0
+OPT_MEM_H = 4
+OPT_MEM_GROWTH = 0.05
+OPT_TRAJ_REL = 1e-9
 MEGA = "tactilesimulation_tpu_torch/csrc/megastep.cu"
 LANE = "tactilesimulation_tpu_torch/csrc/lane_contact.cu"
 DENSE = "tactilesimulation_tpu_torch/csrc/dense_contact.cu"
@@ -884,6 +978,28 @@ def insertion_env(dev, dtype):
     name = kw.pop("name")
     kw.pop("lane_vec", None)
     return envs.make(name, device=dev, dtype=dtype, seed=0, **kw), cfg
+
+
+def lanes_launches(env):
+    """K1 and K1T launches of one env step of ``env`` (a TactilePushLanes
+    on the lanes stepper with the pair-wrench op), (forward K1, forward
+    K1T, backward K1, backward K1T), the backward's for a cotangent on the
+    state (the observation's pullback, one K1T, comes on top where the
+    gradient reaches it). Forward: a chord factor (1 residual, n pullbacks)
+    at every ``lanes.factor_substeps``, a chord of 1 + max_iter residuals a
+    substep, the observation's field once (tactile obs), and with
+    ``fwdfac`` the exact factor at every substep's v*. Backward, per
+    substep: one residual graph at v*, then ``exact`` n + 1 pullbacks,
+    ``fwdfac`` / ``stale`` 1, ``refine<k>`` k + 2."""
+    from tactilesimulation_tpu_torch.sim import lanes
+    n, fs = env.struct.ndof_q, env.frame_skip
+    kind, k = lanes.parse_bwd_mode(env.solver_bwd)
+    factors = len(lanes.factor_substeps(fs, env.solver_refresh))
+    if kind == "fwdfac":
+        factors += fs
+    k1 = factors + fs * (1 + env.max_iter) + int(env._needs_tactile)
+    pulls = {"exact": n + 1, "refine": (k or 0) + 2}.get(kind, 1)
+    return k1, factors * n, fs, fs * pulls
 
 
 def insertion_lanes(dev, dtype):
@@ -1900,8 +2016,10 @@ class Smoke:
                   f"{e.self_cpu_time_total / 1e3:8.2f} ms")
 
     # 6 -------------------------------------------------------------------
-    def cross(self, dev):
-        from tactilesimulation_tpu_torch.envs import tactile_push_lanes
+    @staticmethod
+    def cross_case():
+        """cross's reset and disturbance draws (numpy) and its actor, whose
+        pad backs away from the box (no contact switch in the window)."""
         from tactilesimulation_tpu_torch.models.nets import DiagGaussianActor
         B, H = B_CROSS, H_CROSS
         rng = np.random.RandomState(7)
@@ -1915,39 +2033,53 @@ class Smoke:
         actor = DiagGaussianActor(393, 3, ACTOR_CFG)
         with torch.no_grad():
             # the pad backs away from the box: no contact switch in the
-            # window (see the tolerance note below)
+            # window (see the tolerance note in cross)
             actor.mean.bias.copy_(torch.tensor([-1.0, 0.0, 0.0]))
             actor.mean.weight.mul_(0.1)
+        return (box_y, goal, dist), actor
+
+    @staticmethod
+    def cross_run(env, draws, actor, where, dtype, H=H_CROSS):
+        """H env steps of ``env`` at B_CROSS lanes with ``draws`` injected
+        and ``actor`` (moved to ``where``, ``dtype``), and the BPTT
+        gradient of -mean(sum of rewards): [q, qdot, rewards, obs, flat
+        gradient] as float64 CPU tensors."""
+        box_y, goal, dist = draws
+        steps = iter(dist)
+
+        def injected(what, nb):
+            t = lambda a: torch.as_tensor(a, device=where)
+            if what == "reset":
+                return (t(box_y).to(dtype), t(goal).to(dtype))
+            keep_zero, sampled = next(steps)
+            return t(keep_zero), t(sampled).to(dtype)
+
+        env._draw = injected
+        pol = actor.to(where, dtype)
+        rewards = []
+        state, obs = env.reset(B_CROSS)
+        for _ in range(H):
+            state, obs, r, _, _ = env.step(state, pol.act(obs))
+            rewards.append(r)
+        rewards = torch.stack(rewards)
+        loss = -torch.mean(torch.sum(rewards, dim=0))
+        grads = torch.autograd.grad(loss, list(pol.parameters()),
+                                    allow_unused=True)
+        flat = torch.cat([g.reshape(-1) for g in grads if g is not None])
+        return [x.detach().double().cpu() for x in
+                (state.sim.q, state.sim.qdot, rewards, obs, flat)]
+
+    def cross(self, dev):
+        from tactilesimulation_tpu_torch.envs import tactile_push_lanes
+        draws, actor = self.cross_case()
         runs = []
         for where, dtype in ((dev, torch.float32),
                              (torch.device("cpu"), torch.float64)):
             env = tactile_push_lanes.make("tactile_flatten", device=where,
                                           dtype=dtype)
-            draws = iter(dist)
-
-            def injected(what, nb, where=where, dtype=dtype, draws=draws):
-                t = lambda a: torch.as_tensor(a, device=where)
-                if what == "reset":
-                    return (t(box_y).to(dtype), t(goal).to(dtype))
-                keep_zero, sampled = next(draws)
-                return t(keep_zero), t(sampled).to(dtype)
-
-            env._draw = injected
-            pol = actor.to(where, dtype)
             pw = env.pair_wrenches
             pw.reset_counts()
-            rewards = []
-            state, obs = env.reset(B)
-            for _ in range(H):
-                state, obs, r, _, _ = env.step(state, pol.act(obs))
-                rewards.append(r)
-            rewards = torch.stack(rewards)
-            loss = -torch.mean(torch.sum(rewards, dim=0))
-            grads = torch.autograd.grad(loss, list(pol.parameters()),
-                                        allow_unused=True)
-            flat = torch.cat([g.reshape(-1) for g in grads if g is not None])
-            runs.append([x.detach().double().cpu() for x in
-                         (state.sim.q, state.sim.qdot, rewards, obs, flat)])
+            runs.append(self.cross_run(env, draws, actor, where, dtype))
             mega = env.megastep
             if where.type == "cuda" and (
                     pw.twin_vjps or pw.twin_recomputes
@@ -3055,16 +3187,15 @@ class Smoke:
 
     @staticmethod
     def lane_kernels_loaded():
-        """K1/K1T's and K2/K3's libraries loaded in this process (the
-        child process that runs CHILD_PHASES loads neither unless one of
-        their kernels was launched)."""
+        """K1/K1T's and K2/K3's libraries loaded in this process (a worker
+        loads neither unless one of its phases launched their kernels)."""
         from tactilesimulation_tpu_torch.ops import _build
         return sorted(set(_build._loaded) & {"lane_contact", "megastep"})
 
     def grasp(self, dev):
         """Slice 10: StableGrasp through the registry and the gym wrapper
         (the reset's 180-substep script from the shipped start pose, K4R
-        once at its capture); then card against CPU on GRASP_SHORT."""
+        once at its capture); grasp_cross holds the card to the CPU."""
         from tactilesimulation_tpu_torch import envs
         from tactilesimulation_tpu_torch.envs import stable_grasp
         from tactilesimulation_tpu_torch.envs.gym_wrapper import GymEnv
@@ -3139,9 +3270,6 @@ class Smoke:
         self.env_read_check("the capture's read", env.struct,
                             env._model_for(ex), m64.to(dev, torch.float64),
                             ex.cap_q, ex.cap_qdot, ex.cap_field)
-
-        # (b) card against CPU
-        self.grasp_cross(dev)
 
     def grasp_cross(self, dev):
         """Reset and one step on GRASP_SHORT from GRASP_DRAWS: the card
@@ -3432,12 +3560,535 @@ class Smoke:
         if bad:
             raise AssertionError(f"{what}, card vs CPU: {bad}")
 
+    # 13 ------------------------------------------------------------------
+    def count_launches(self, **n):
+        for key, k in n.items():
+            row = self.kernel_rows.setdefault(key, {})
+            row["launches"] = row.get("launches", 0) + k
+
+    def optim_cli(self, dev):
+        """(a) the GD CLI at gd_tactile.yaml's widths, then --play."""
+        import yaml
+        from tactilesimulation_tpu_torch import envs
+        from tactilesimulation_tpu_torch.envs import tactile_push
+        from tactilesimulation_tpu_torch.examples import \
+            train_tactile_push_gd as cli
+        from tactilesimulation_tpu_torch.ops import (dense_contact,
+                                                     lane_contact, megastep)
+        card = dev.type == "cuda"
+        on_card = lambda n: n if card else 0
+        ops = {"pw": [], "mega": []}
+        make_pw = lane_contact.make_pair_wrenches
+        make_mega = megastep.build_env_step_mega
+
+        def spy_pw(struct):
+            out = make_pw(struct)
+            ops["pw"].append(out[0])
+            return out
+
+        def spy_mega(*a, **k):
+            out = make_mega(*a, **k)
+            ops["mega"].append(out.op)
+            return out
+
+        with open(GD_CFG) as fp:
+            cfg = yaml.safe_load(fp)
+        conf = cfg["params"]["config"]
+        print(f"  cut: num_epochs {conf['num_epochs']} -> {OPT_EPOCHS} "
+              "(a copy of gd_tactile.yaml)")
+        conf["num_epochs"] = OPT_EPOCHS
+        tmp = tempfile.mkdtemp()
+        cut = os.path.join(tmp, "gd_cut.yaml")
+        with open(cut, "w") as fp:
+            yaml.safe_dump(cfg, fp)
+        logdir = os.path.join(tmp, "run")
+        args = ["--cfg", cut, "--device", str(dev), "--seed", "0"]
+        lane_contact.make_pair_wrenches = spy_pw
+        megastep.build_env_step_mega = spy_mega
+        try:
+            t0 = time.perf_counter()
+            mean_r = cli.main(args + ["--no-time-stamp", "--logdir", logdir])
+            if card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            (pw,), megas = ops["pw"], ops["mega"]
+            if card and len(megas) != 1:
+                raise AssertionError("the GD CLI did not build the megastep")
+            fwd, bwd = ((megas[0].fwd_launches, megas[0].bwd_launches)
+                        if megas else (0, 0))
+            counts = dict(K2=fwd, K3=bwd,
+                          K1=pw.launches, K1T=pw.bwd_launches,
+                          twin=pw.twin_vjps + pw.twin_recomputes)
+            H = envs._REGISTRY["TactilePush-v1"][1]
+            E = conf["num_episodes"]
+            want = dict(K2=on_card(H * OPT_EPOCHS), K3=on_card(H * OPT_EPOCHS),
+                        K1=on_card((1 + H) * OPT_EPOCHS),
+                        K1T=on_card((H - 1) * OPT_EPOCHS),
+                        twin=0 if card else counts["twin"])
+            with open(os.path.join(logdir, "logs.txt")) as fp:
+                lines = fp.read().splitlines()
+            secs = [float(x.split("seconds = ")[1]) for x in lines]
+            print(f"  GD CLI E={E} H={H}, {OPT_EPOCHS} epoch(s): "
+                  f"{', '.join(f'{x:.2f}' for x in secs)} s per epoch "
+                  f"({wall:.1f} s the whole call), mean reward {mean_r:.4f}; "
+                  f"launches {counts} (want {want}) [{self.card}]")
+            if counts != want:
+                raise AssertionError("the GD CLI's epoch did not run through "
+                                     "K2/K3/K1/K1T as expected")
+            models = os.path.join(logdir, "models")
+            blobs = [torch.load(os.path.join(models, f"{n}.pt"),
+                                map_location="cpu", weights_only=True)
+                     for n in ("init_policy", "final_policy")]
+            moved = max(float((a - blobs[0]["params"][k]).abs().max())
+                        for k, a in blobs[1]["params"].items())
+            if not (math.isfinite(mean_r) and moved > 0):
+                raise AssertionError("GD CLI: non-finite reward or the "
+                                     "parameters did not move")
+            print(f"  saved {sorted(os.listdir(models))}, max parameter "
+                  f"move {moved:.3e}")
+            self.count_launches(**{k: counts[k] for k in
+                                   ("K1", "K1T", "K2", "K3")})
+
+            # --play: one single-instance game, its horizon cut by a probe
+            penv = tactile_push.make("tactile_flatten", device=dev)
+            with torch.no_grad():
+                state, _ = penv.reset()
+                penv.step(state, torch.zeros(3, device=dev))
+                if card:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                penv.step(state, torch.zeros(3, device=dev))
+                if card:
+                    torch.cuda.synchronize()
+            probe = time.perf_counter() - t0
+            n_play = max(1, min(H, int(OPT_PLAY_BUDGET_S / probe)))
+            print(f"  cut: --play horizon {H} -> {n_play} (a probe env step "
+                  f"{probe * 1e3:.1f} ms, budget {OPT_PLAY_BUDGET_S:g} s)")
+            factory = envs._REGISTRY["TactilePush-v1"][0]
+            envs._REGISTRY["TactilePush-v1"] = (factory, n_play)
+            reads, points = dense_contact.read_launches, dense_contact.launches
+            n_ops = len(ops["pw"])
+            try:
+                t0 = time.perf_counter()
+                total = cli.main(args + ["--play", "--checkpoint",
+                                         os.path.join(models,
+                                                      "final_policy.pt")])
+                if card:
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                envs._REGISTRY["TactilePush-v1"] = (factory, H)
+            reads = dense_contact.read_launches - reads
+            points = dense_contact.launches - points
+            idle = [(o.launches, o.bwd_launches) for o in ops["pw"][n_ops:]]
+            idle += [(o.fwd_launches, o.bwd_launches)
+                     for o in ops["mega"][len(megas):]]
+            print(f"  --play {n_play} steps: total reward {total:.4f}, "
+                  f"{wall:.2f} s the whole call, {wall / n_play * 1e3:.1f} ms "
+                  f"per play step; read launches {reads} (want "
+                  f"{on_card(1 + n_play)}), points {points}, K1-K3 {idle} "
+                  f"[{self.card}]")
+            if (reads, points) != (on_card(1 + n_play), 0) or any(
+                    a or b for a, b in idle) or not math.isfinite(total):
+                raise AssertionError("--play did not read through K4R "
+                                     "alone, or its reward is not finite")
+            self.count_launches(K4R=reads)
+        finally:
+            lane_contact.make_pair_wrenches = make_pw
+            megastep.build_env_step_mega = make_mega
+
+    def optim_solver(self, dev):
+        """(b) the lanes stepper's solver options, card against CPU."""
+        from tactilesimulation_tpu_torch.envs import tactile_push_lanes
+        card = dev.type == "cuda"
+        cpu = torch.device("cpu")
+        draws, actor = self.cross_case()
+        H = H_CROSS
+        names = ("q", "qdot", "reward", "obs", "grad")
+        tols = {"q": 1e-5, "qdot": 1e-4, "reward": 1e-5, "obs": 1e-5}
+        mult, floor = ROLL_F32_VS_F64
+        card_runs, cpu_exact = {}, {}
+        launches = {"K1": 0, "K1T": 0}
+        first = True
+        for refresh, mode in OPT_SOLVERS:
+            runs = {}
+            for role, where, dtype in (("card", dev, torch.float32),
+                                       ("cpu64", cpu, torch.float64),
+                                       ("cpu32", cpu, torch.float32)):
+                if (role == "cpu32" and mode in ("exact", "fwdfac")) or (
+                        role == "cpu64" and mode == "fwdfac"):
+                    continue
+                env = tactile_push_lanes.make(
+                    "tactile_flatten", device=where, dtype=dtype,
+                    solver_refresh=refresh, solver_bwd=mode)
+                if env.solver_mega:
+                    raise AssertionError("a solver option took the megastep")
+                pw = env.pair_wrenches
+                if first:
+                    # the probe: the first option's card run at H = 1,
+                    # under the op counter
+                    with AtenCount() as step_ops:
+                        t0 = time.perf_counter()
+                        self.cross_run(env, draws, actor, where, dtype, 1)
+                        if card:
+                            torch.cuda.synchronize()
+                    probe = time.perf_counter() - t0
+                    predicted = probe * H * len(OPT_SOLVERS)
+                    print(f"  probe: refresh {refresh} {mode}, B={B_CROSS}, "
+                          f"one env step forward and backward {probe:.2f} s "
+                          f"under the op counter, {step_ops.n} eager ops; "
+                          f"{len(OPT_SOLVERS)} options x H={H} predicted "
+                          f"{predicted:.0f} s on the card [{self.card}]")
+                    if predicted > OPT_SOLVER_BUDGET_S:
+                        H = 1
+                        print(f"  cut: the solver options' H {H_CROSS} -> "
+                              f"{H} (budget {OPT_SOLVER_BUDGET_S:g} s)")
+                    first = False
+                    pw.reset_counts()
+                t0 = time.perf_counter()
+                runs[role] = dict(zip(names, self.cross_run(
+                    env, draws, actor, where, dtype, H)))
+                if role == "card":
+                    if card:
+                        torch.cuda.synchronize()
+                    k1f, k1tf, k1b, k1tb = lanes_launches(env)
+                    want = (1 + H * (k1f + k1b), H * (k1tf + k1tb) + H - 1)
+                    got = (pw.launches, pw.bwd_launches)
+                    print(f"  refresh {refresh} {mode}: card f32 "
+                          f"{time.perf_counter() - t0:.2f} s, K1 {got[0]}, "
+                          f"K1T {got[1]} (want {want}), twin "
+                          f"{pw.twin_vjps + pw.twin_recomputes}")
+                    if card and (got != want or pw.twin_vjps
+                                 or pw.twin_recomputes):
+                        raise AssertionError(f"refresh {refresh} {mode}: "
+                                             "launches")
+                    launches["K1"] += got[0]
+                    launches["K1T"] += got[1]
+                else:
+                    print(f"    {role}: {time.perf_counter() - t0:.2f} s")
+            if mode == "fwdfac":
+                runs["cpu64"] = cpu_exact[refresh]
+            elif mode == "exact":
+                cpu_exact[refresh] = runs["cpu64"]
+            ref, got = runs["cpu64"], runs["card"]
+            if not float(ref["grad"].norm()) > 0:
+                raise AssertionError("zero BPTT gradient")
+            err = max_rel(got, ref)
+            bad = []
+            if mode in ("exact", "fwdfac"):
+                g, w = got["grad"], ref["grad"]
+                rel = float((g - w).norm() / w.norm())
+                cos = float(g @ w / (g.norm() * w.norm()))
+                bad += [k for k, t in tols.items() if not err[k] <= t]
+                if not (rel <= CROSS_GRAD_TOL["rel"]
+                        and cos >= CROSS_GRAD_TOL["cos"]):
+                    bad.append("grad")
+                print(f"    card f32 vs cpu f64 ({'exact' if mode == 'fwdfac' else mode}): " + ", ".join(
+                    f"{k} {err[k]:.2e}" for k in tols) + f"; grad rel "
+                    f"{rel:.2e}, cos {cos:.9f}")
+            else:
+                e32 = max_rel(runs["cpu32"], ref)
+                bad += [k for k in names
+                        if not err[k] <= mult * e32[k] + floor]
+                print(f"    card f32 vs cpu f64 (cpu f32 vs f64): " +
+                      ", ".join(f"{k} {err[k]:.2e} ({e32[k]:.2e})"
+                                for k in names))
+            card_runs[(refresh, mode)] = got
+            if mode == "fwdfac":
+                e = max_rel(got, card_runs[(refresh, "exact")])
+                print(f"    fwdfac vs exact on the card: " + ", ".join(
+                    f"{k} {e[k]:.2e}" for k in names))
+                bad += [f"{k} vs exact" for k in names
+                        if not e[k] <= OPT_FWDFAC_TOL]
+            if bad:
+                raise AssertionError(f"refresh {refresh} {mode}: {bad}")
+        self.count_launches(**launches)
+
+        # the lanes stepper's memory above what was allocated before, remat
+        # on and off (refresh 1 exact, B_CROSS lanes, OPT_LANES_MEM_H env
+        # steps of cross's actor): kept after the forward, and the peak
+        env = tactile_push_lanes.make("tactile_flatten", device=dev,
+                                      solver_refresh=1)
+        pol = actor.to(dev, torch.float32)
+        params = list(pol.parameters())
+        mib = lambda f: f() / 2**20 if card else 0.0
+        # a one-step rematerialised rollout and its backward first: what is
+        # allocated once (the op's tables, the backward thread's cuBLASLt
+        # workspace for the rerun step's matmuls) stays outside the
+        # comparison
+        torch.autograd.grad(env.batched_rollout_fn(pol.act, 1, remat=True)(
+            B_CROSS)[0].sum(), params, allow_unused=True)
+        lmem = {}
+        for remat in (True, False):
+            env.generator.manual_seed(0)
+            if card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            base = mib(torch.cuda.memory_allocated)
+            t0 = time.perf_counter()
+            rewards = env.batched_rollout_fn(pol.act, OPT_LANES_MEM_H,
+                                             remat=remat)(B_CROSS)[0]
+            if card:
+                torch.cuda.synchronize()
+            kept = mib(torch.cuda.memory_allocated) - base
+            torch.autograd.grad(-rewards.sum(dim=1).mean(), params,
+                                allow_unused=True)
+            del rewards
+            if card:
+                torch.cuda.synchronize()
+            lmem[remat] = (kept, mib(torch.cuda.max_memory_allocated) - base)
+            print(f"  lanes refresh 1 exact, B={B_CROSS}, H="
+                  f"{OPT_LANES_MEM_H}, remat={remat}: MiB above the "
+                  f"{base:.3f} allocated before: kept after the forward "
+                  f"{kept:.4f}, peak {lmem[remat][1]:.4f}, left after "
+                  f"{mib(torch.cuda.memory_allocated) - base:.4f}; "
+                  f"{time.perf_counter() - t0:.2f} s [{self.card}]")
+        if card and not (lmem[True][0] < lmem[False][0]
+                         and lmem[True][1] <= lmem[False][1]):
+            raise AssertionError("lanes remat kept or peaked as much as no "
+                                 "remat")
+
+        # refresh 1, exact, at B_MAIN: one env step forward and backward
+        from tactilesimulation_tpu_torch.models.nets import DiagGaussianActor
+        env = tactile_push_lanes.make("tactile_flatten", device=dev,
+                                      solver_refresh=1)
+        torch.manual_seed(0)
+        pol = DiagGaussianActor(env.obs_size()[0], env.ndof_u,
+                                ACTOR_CFG).to(dev)
+        params = list(pol.parameters())
+
+        def one_step():
+            state, obs = env.reset(B_MAIN)
+            state, obs, r, _, _ = env.step(state, pol.act(obs))
+            torch.autograd.grad(-r.mean(), params, allow_unused=True)
+
+        env.pair_wrenches.reset_counts()
+        if card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            one_step()
+        if card:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        print(f"  refresh 1 exact, B={B_MAIN}, one env step forward + "
+              f"backward (with its reset): {ms:.1f} ms, K1 "
+              f"{env.pair_wrenches.launches}, K1T "
+              f"{env.pair_wrenches.bwd_launches} [{self.card}]")
+        if card:
+            # the profiler's window: one substep's chord factor (a whole env
+            # step's 673,567 kernels take minutes to read back)
+            from tactilesimulation_tpu_torch.sim import lanes
+            with torch.no_grad():
+                sim = env.reset(B_MAIN)[0].sim
+            inputs = lanes.StepInputs(
+                model=env.model, u=torch.zeros((6, B_MAIN), device=dev),
+                q_base=sim.q,
+                p_base=lanes.momentum(env.struct, env.model, sim.q, sim.qdot),
+                gamma=env.model.h.reshape(1, 1))
+            residual = lanes.make_residual(env.struct, env._pw)
+            self.device_share(
+                lambda: lanes.make_chord_lu(residual, inputs, sim.qdot),
+                f"refresh 1: one substep's chord factor (B={B_MAIN})")
+
+    def optim_traj(self, dev):
+        """(c) shooting and iLQR in float64, the card against the CPU."""
+        from tactilesimulation_tpu_torch.algorithms.ilqr import ILQROptimizer
+        from tactilesimulation_tpu_torch.algorithms.shooting import \
+            ShootingOptimizer
+        from tactilesimulation_tpu_torch.model import scenes, task_scenes
+        from tactilesimulation_tpu_torch.ops import dense_contact
+        from tactilesimulation_tpu_torch.sim.simulation import Simulator
+        card = dev.type == "cuda"
+        sync = torch.cuda.synchronize if card else (lambda: None)
+        f64, cpu = torch.float64, torch.device("cpu")
+        before = (dense_contact.read_launches, dense_contact.launches)
+
+        def sims(build):
+            struct, model = build()
+            return {w: Simulator(struct, model.to(w, f64))
+                    for w in (dev, cpu)}
+
+        def timed(fn):
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            return out, time.perf_counter() - t0
+
+        def solve(opt, sim, H, where):
+            us0 = torch.zeros(H, sim.struct.ndof_u, dtype=f64, device=where)
+            out, sec = timed(lambda: opt.solve(sim.model, sim.init_state(),
+                                               us0))
+            return [x.detach().cpu() for x in out], sec
+
+        def agree(what, card_out, cpu_out, rel, controls=True):
+            """(us, cost, history) of the card against the CPU's; the
+            controls printed but not held with ``controls=False``."""
+            errs = [max_rel({"x": a}, {"x": b})["x"]
+                    for a, b in zip(card_out, cpu_out)]
+            print(f"    {what} card vs cpu (us, cost, history): "
+                  + ", ".join(f"{e:.2e}" for e in errs) + f" (tol {rel:g}"
+                  + ("" if controls else "; the controls not held") + ")")
+            if not all(e <= rel for e in (errs if controls else errs[1:])):
+                raise AssertionError(f"{what}: card against CPU")
+
+        # the pendulum protocol (the JAX package's tests/test_ilqr.py)
+        pend = sims(lambda: scenes.pendulum(damping=0.05))
+        cost = lambda s, u: ((s.q[0] - math.pi / 2) ** 2
+                             + 0.05 * s.qdot[0] ** 2 + 1e-3 * torch.sum(u ** 2))
+        P, H = dict(OPT_PEND), OPT_PEND_H
+        probe = {}
+        for name, opt in (
+                ("adam", ShootingOptimizer(pend[dev], H, cost, iterations=1,
+                                           lr=P["lr"], remat=False)),
+                ("ilqr", ILQROptimizer(pend[dev], H, cost, iterations=1))):
+            if name == "adam":      # the first call's set-up is no iteration
+                solve(opt, pend[dev], H, dev)
+            first, probe[name] = solve(opt, pend[dev], H, dev)
+        full = (P["adam"] * probe["adam"] + P["ilqr"] * probe["ilqr"]) \
+            * P["H"] / H
+        k = P["ilqr"]
+        while k > 1 and k * (4 * probe["adam"] + probe["ilqr"]) > \
+                OPT_PEND_BUDGET_S:
+            k -= 1
+        print(f"  pendulum probe at H={H}: an Adam iteration "
+              f"{probe['adam']:.2f} s, an iLQR iteration "
+              f"{probe['ilqr']:.2f} s; the protocol (H={P['H']}, Adam "
+              f"{P['adam']}, iLQR {P['ilqr']}) predicted {full:.0f} s "
+              f"[{self.card}]")
+        print(f"  cut: pendulum H {P['H']} -> {H}, Adam {P['adam']} -> "
+              f"{4 * k}, iLQR {P['ilqr']} -> {k} (budget "
+              f"{OPT_PEND_BUDGET_S:g} s on the card)")
+        res = {}
+        for where in (dev, cpu):
+            shoot = ShootingOptimizer(pend[where], H, cost, iterations=4 * k,
+                                      lr=P["lr"], remat=False)
+            ilqr = ILQROptimizer(pend[where], H, cost, iterations=k)
+            res[where.type] = (solve(shoot, pend[where], H, where),
+                               solve(ilqr, pend[where], H, where))
+        (s_out, s_sec), (i_out, i_sec) = res[dev.type]
+        print(f"  pendulum H={H} on the card: Adam {4 * k} iterations "
+              f"{s_sec / (4 * k):.2f} s each, final cost "
+              f"{float(s_out[1]):.6f}; iLQR {k} iterations {i_sec / k:.2f} "
+              f"s each, final cost {float(i_out[1]):.6f} [{self.card}]")
+        reach = np.nonzero(i_out[2].numpy() <= float(s_out[1]) * 1.001)[0]
+        drop = 1 - float(s_out[1]) / float(s_out[2][0])
+        print(f"    iLQR reaches Adam's final cost x 1.001 at iteration "
+              f"{int(reach[0]) + 1 if len(reach) else None} of {k} (Adam: "
+              f"{4 * k}, which moved its cost by {drop:.2%} from its first "
+              f"iterate: at this cut the check cannot tell a convergent "
+              f"iLQR from one that merely improves)")
+        if not (float(i_out[1]) <= float(s_out[1]) * 1.001):
+            raise AssertionError("iLQR did not reach Adam's cost at a "
+                                 "quarter of its iterations")
+        agree("pendulum Adam", s_out, res["cpu"][0][0], OPT_TRAJ_REL)
+        # past its first iteration iLQR's line search can meet candidates
+        # whose costs tie within round-off near the optimum, and which one
+        # argmin keeps is then decided by it (the same cost, controls a
+        # step apart): the controls are held after one iteration (the
+        # probe's), the costs after k
+        agree("pendulum iLQR, 1 iteration", first, solve(
+            ILQROptimizer(pend[cpu], H, cost, iterations=1), pend[cpu], H,
+            cpu)[0], OPT_TRAJ_REL)
+        agree(f"pendulum iLQR, {k} iterations", i_out, res["cpu"][1][0],
+              OPT_TRAJ_REL, controls=k == 1)
+
+        # TactilePush, the cost of the JAX package's tests/test_ilqr.py
+        push = sims(task_scenes.tactile_push)
+        pcost = lambda s, u: (torch.sum((s.q[3:5] - s.q.new_tensor(
+            [0.08, 0.02])) ** 2) + 1e-4 * torch.sum(u ** 2))
+        sim = push[dev]
+        with torch.no_grad():
+            u0 = torch.zeros(sim.struct.ndof_u, dtype=f64, device=dev)
+            sim.step(sim.model, sim.init_state(), u0)
+            _, t_step = timed(lambda: sim.step(sim.model, sim.init_state(),
+                                               u0))
+        Q = dict(OPT_PUSH)
+        per_h = t_step * (1.5 * (6 * Q["ilqr"] + 4 * Q["ilqr"]
+                                 + 3 * Q["adam"]))
+        full = per_h * Q["H"] * (OPT_PUSH_FULL["ilqr"] + OPT_PUSH_FULL[
+            "adam"]) / (Q["ilqr"] + Q["adam"])
+        H = max(1, min(Q["H"], int(OPT_PUSH_BUDGET_S / per_h)))
+        print(f"  TactilePush probe step {t_step * 1e3:.1f} ms: iLQR "
+              f"{Q['ilqr']} + Adam {Q['adam']} at H={Q['H']} predicted "
+              f"{per_h * Q['H']:.0f} s with the CPU's run; the full protocol "
+              f"(iLQR {OPT_PUSH_FULL['ilqr']}, Adam {OPT_PUSH_FULL['adam']}) "
+              f"{full:.0f} s: left out [{self.card}]")
+        if H != Q["H"]:
+            print(f"  cut: TactilePush H {Q['H']} -> {H} (budget "
+                  f"{OPT_PUSH_BUDGET_S:g} s)")
+        res = {}
+        for where in (dev, cpu):
+            s = push[where]
+            res[where.type] = (
+                solve(ShootingOptimizer(s, H, pcost, iterations=Q["adam"],
+                                        lr=Q["lr"], remat=False), s, H, where),
+                solve(ILQROptimizer(s, H, pcost, iterations=Q["ilqr"]), s, H,
+                      where))
+        (s_out, s_sec), (i_out, i_sec) = res[dev.type]
+        print(f"  TactilePush H={H} on the card: Adam {Q['adam']} iterations "
+              f"{s_sec / Q['adam']:.2f} s each, cost {float(s_out[1]):.6e}; "
+              f"iLQR {Q['ilqr']} iteration(s) {i_sec / Q['ilqr']:.2f} s each, "
+              f"cost {float(i_out[1]):.6e} [{self.card}]")
+        agree("TactilePush Adam", s_out, res["cpu"][0][0], OPT_TRAJ_REL)
+        agree("TactilePush iLQR", i_out, res["cpu"][1][0], OPT_TRAJ_REL)
+
+        # shooting's memory above what was allocated before, remat on and
+        # off: kept after the forward, peak, and what stays after each
+        # iteration
+        from tactilesimulation_tpu_torch.algorithms.gd import Adam
+        mib = lambda f: f() / 2**20 if card else 0.0
+        alloc = lambda: mib(torch.cuda.memory_allocated)
+        mem = {}
+        for remat in (True, False):
+            opt = ShootingOptimizer(sim, OPT_MEM_H, pcost, lr=Q["lr"],
+                                    remat=remat)
+            sync()
+            base = alloc()
+            if card:
+                torch.cuda.reset_peak_memory_stats()
+            us = torch.zeros(OPT_MEM_H, sim.struct.ndof_u, dtype=f64,
+                             device=dev).requires_grad_()
+            adam = Adam([us], Q["lr"])
+            rows, secs = [], []
+            for _ in range(3 if remat else 1):
+                t0 = time.perf_counter()
+                loss = opt.total_cost(sim.model, sim.init_state(), us)
+                sync()
+                kept = alloc() - base
+                adam.step(torch.autograd.grad(loss, us))
+                del loss
+                sync()
+                secs.append(time.perf_counter() - t0)
+                rows.append((kept, mib(torch.cuda.max_memory_allocated)
+                             - base, alloc() - base))
+            mem[remat] = rows
+            print(f"  shooting remat={remat}, H={OPT_MEM_H}, MiB above the "
+                  f"{base:.3f} allocated before, after each iteration "
+                  f"(kept after the forward, peak so far, left after): "
+                  + ", ".join(f"({a:.4f}, {b:.4f}, {c:.4f})"
+                              for a, b, c in rows)
+                  + f"; {np.mean(secs):.2f} s an iteration [{self.card}]")
+        (kept_r, peak_r, _), (kept_p, peak_p, _) = mem[True][0], mem[False][0]
+        grow = mem[True][2][1] - peak_r
+        if card and not grow <= OPT_MEM_GROWTH * peak_r:
+            raise AssertionError(f"remat shooting's peak grew by {grow:.4f} "
+                                 "MiB over 2 iterations")
+        if card and not (kept_r < kept_p and peak_r <= peak_p):
+            raise AssertionError("remat kept or peaked as much as no remat")
+        after = (dense_contact.read_launches, dense_contact.launches)
+        if after != before:
+            raise AssertionError("a kernel launched in the single-instance "
+                                 "optimisers")
+
 
 class Child:
-    """CHILD_PHASES in a second process (``chip_smoke.py --child OUT
-    PHASE...``), its output kept in a temporary file until ``join``."""
+    """A group of WORKERS in a process of its own (``chip_smoke.py --child
+    OUT PHASE...``), its output kept in a temporary file until ``join``."""
 
     def __init__(self, phases):
+        self.phases = phases
         fd, self.out = tempfile.mkstemp(suffix=".json")
         os.close(fd)
         self.log = tempfile.TemporaryFile(mode="w+")
@@ -3477,6 +4128,7 @@ def child_main(dev, out, phases) -> int:
     """Run ``phases`` and write {"failed": [...], "launches": {key: n}} to
     ``out``."""
     s = Smoke()
+    torch.set_num_threads(WORKER_THREADS)
     s.phase("device", s.device)
     if not s.failed:
         for name in phases:
@@ -3507,22 +4159,21 @@ def main(argv=None) -> int:
     s.phase("build", s.build)
     if not s.failed:
         s.phase("kernels", s.kernels, dev)
-        # the env phases beside the rest (after the kernels' timings)
-        child = Child(CHILD_PHASES)
+        # the other phases after the kernels' timings: WORKERS, each group
+        # in a process of its own, beside MAIN_PHASES here
+        workers = [Child(group) for group in WORKERS]
+        torch.set_num_threads(MAIN_THREADS)
         try:
-            s.phase("slice", s.slice, dev)
-            s.phase("train", s.train, dev)
-            s.phase("cross", s.cross, dev)
-            s.phase("rolling", s.rolling, dev)
-            s.phase("adjoint", s.adjoint, dev)
-            s.phase("ppo", s.ppo, dev)
-            s.phase("insertion", s.insertion, dev)
-            print(f"== waiting for {', '.join(CHILD_PHASES)} (started after "
-                  "kernels, in a second process)", flush=True)
-            s.phase("child", child.join, s,
-                    max(30.0, CHILD_DEADLINE_S - (time.perf_counter() - t0)))
+            for name in MAIN_PHASES:
+                s.phase(name, getattr(s, name), dev)
+            for w in workers:
+                print(f"== waiting for {', '.join(w.phases)} (a process "
+                      "started after kernels)", flush=True)
+                s.phase("join", w.join, s,
+                        max(30.0, DEADLINE_S - (time.perf_counter() - t0)))
         finally:
-            child.stop()
+            for w in workers:
+                w.stop()
     print(f"total {time.perf_counter() - t0:.1f} s")
     if s.failed:
         print(f"FAILED phases: {s.failed}")

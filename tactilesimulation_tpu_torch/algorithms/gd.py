@@ -1,21 +1,31 @@
-"""GD: analytic-gradient (BPTT) policy optimisation on the lane env.
+"""GD: analytic-gradient (BPTT) policy optimisation.
 
 Port of ``tactilesimulation_tpu/algorithms/gd.py``. One epoch is ONE batched
-differentiable rollout of ``num_episodes`` lanes over the horizon (the env's
-``batched_rollout_fn``, which on the card runs K2/K3 per env step), the loss
--mean(episode reward), its gradient w.r.t. the actor's parameters, global-norm
-clipping and Adam with a linear learning-rate schedule to 1e-5 (the
-reference protocol, e.g. ``examples/TactilePushExp/cfg/gd_tactile.yaml``).
+differentiable rollout of ``num_episodes`` episodes over the horizon, the
+loss -mean(episode reward), its gradient w.r.t. the actor's parameters,
+global-norm clipping and Adam with a linear learning-rate schedule to 1e-5
+(the reference protocol, e.g.
+``examples/TactilePushExp/cfg/gd_tactile.yaml``).
+
+The rollout env, by the JAX package's rule: the env's lane-major twin
+(``env.lane_env()``, e.g. ``TactilePushLanes``, which on the card runs
+K2/K3 per env step) when ``config.lane_rollouts`` (default true) is set
+and the env has one; otherwise the env's own ``batched_rollout_fn`` (E
+single instances one after another, e.g. the pendulum). A lane env handed
+in directly is its own rollout env. ``config.remat`` (default true)
+recomputes each env step in the backward (``batched_rollout_fn``'s
+``remat``). ``evaluate`` and ``test_gradient`` play single-instance
+episodes on the env (``rollout_fn``), or lane episodes at B = 1 when GD
+was handed a lane env.
 
 Deviations from the JAX package:
-- ``evaluate`` and ``test_gradient`` roll out the lane env at B = 1 (the
-  single-instance env is not ported);
-- episodes draw their reset and disturbance noise from the env's
+- episodes draw their reset and disturbance noise from the rollout env's
   ``torch.Generator`` (seeded from ``seed``), whose state the checkpoint
-  carries; the JAX package splits PRNG keys;
-- no data-parallel episode sharding, no profiler capture
-  (``profile_epochs``) and no TensorBoard writer (``logs.txt`` and the
-  console only).
+  carries; ``evaluate`` from the env's generator seeded to ``seed + 1``;
+  the JAX package splits PRNG keys;
+- no data-parallel episode sharding (ROADMAP queue 1, item 9), no
+  profiler capture (``profile_epochs``) and no TensorBoard writer (item
+  10; ``logs.txt`` and the console only).
 """
 
 from __future__ import annotations
@@ -110,8 +120,9 @@ class Adam:
 class GD:
     def __init__(self, env, cfg: Dict[str, Any], logdir: Optional[str] = None,
                  seed: int = 0):
-        """env: a lane env (``TactilePushLanes``); cfg: the YAML ``params``
-        dict (``config`` and ``network`` sections)."""
+        """env: a ``FunctionalEnv`` or a lane env (``TactilePushLanes``);
+        cfg: the YAML ``params`` dict (``config`` and ``network``
+        sections)."""
         self.env = env
         self.cfg = cfg
         config = cfg.get("config", {})
@@ -126,7 +137,11 @@ class GD:
         self.grad_norm = config.get("grad_norm", 1.0)
         self.betas = tuple(config.get("betas", (0.9, 0.999)))
         self.use_obs_rms = config.get("obs_rms", False)
+        self.remat = config.get("remat", True)
         self.logdir = logdir
+        lane = (env.lane_env() if config.get("lane_rollouts", True)
+                and hasattr(env, "lane_env") else None)
+        self.rollout_env = lane if lane is not None else env
 
         actor_name = network.get("actor", "DiagGaussianActor")
         assert actor_name == "DiagGaussianActor", (
@@ -149,7 +164,7 @@ class GD:
         # generator, so its state is part of a checkpoint
         self._epoch = 0
         self._best = -np.inf
-        self.env.generator.manual_seed(seed)
+        self.rollout_env.generator.manual_seed(seed)
 
     # ------------------------------------------------------------------
     def policy(self, obs):
@@ -160,8 +175,9 @@ class GD:
     def epoch_loss(self):
         """(loss, episode rewards (E,), infos, obs seen (E, H, obs) or
         None): one differentiable rollout of the epoch's episodes."""
-        run = self.env.batched_rollout_fn(self.policy, self.horizon,
-                                          with_obs=self.use_obs_rms)
+        run = self.rollout_env.batched_rollout_fn(
+            self.policy, self.horizon, remat=self.remat,
+            with_obs=self.use_obs_rms)
         outs = run(self.num_episodes)
         rewards, infos = outs[0], outs[2]
         episode_reward = torch.sum(rewards, dim=-1)
@@ -233,10 +249,10 @@ class GD:
 
     # ------------------------------------------------------------------
     @contextlib.contextmanager
-    def _episode_noise(self, seed: int):
-        """Run with the env's generator seeded to ``seed``, then put its
-        training state back."""
-        gen = self.env.generator
+    def _episode_noise(self, seed: int, env=None):
+        """Run with the generator of ``env`` (the rollout env when None)
+        seeded to ``seed``, then put its training state back."""
+        gen = (self.rollout_env if env is None else env).generator
         saved = gen.get_state()
         gen.manual_seed(seed)
         try:
@@ -244,15 +260,23 @@ class GD:
         finally:
             gen.set_state(saved)
 
+    def _episode_rewards(self, horizon):
+        """The rewards of one episode on the env: a single instance
+        (``rollout_fn``, no remat), or one lane when the env is a lane
+        env."""
+        if hasattr(self.env, "rollout_fn"):
+            return self.env.rollout_fn(self.policy, horizon,
+                                       remat=False)()[0]
+        return self.env.batched_rollout_fn(self.policy, horizon)(1)[0]
+
     def evaluate(self, num_games=1):
-        """Mean total reward of ``num_games`` deterministic episodes, one
-        lane each, with noise from ``seed + 1``."""
+        """Mean total reward of ``num_games`` deterministic episodes on the
+        env, with noise from its generator seeded to ``seed + 1``."""
         total = 0.0
-        with torch.no_grad(), self._episode_noise(self.seed + 1):
+        with torch.no_grad(), self._episode_noise(self.seed + 1, self.env):
             for _ in range(num_games):
-                rewards = self.env.batched_rollout_fn(self.policy,
-                                                      self.horizon)(1)[0]
-                total += float(torch.sum(rewards))
+                total += float(torch.sum(self._episode_rewards(
+                    self.horizon)))
         return total / num_games
 
     def save(self, filename=None):
@@ -278,11 +302,11 @@ class GD:
              "opt_state": self.optimizer.state_dict(),
              "obs_rms": self.obs_rms.state_dict() if self.obs_rms else None,
              "epoch": self._epoch, "best": self._best,
-             "generator": self.env.generator.get_state()})
+             "generator": self.rollout_env.generator.get_state()})
 
     def resume(self, path):
         """Restore parameters, optimizer state, obs statistics, epoch, best
-        reward and the env's generator: a following ``train()`` continues
+        reward and the rollout env's generator: a following ``train()`` continues
         exactly where the checkpointed run stopped."""
         blob = checkpoint.restore_state(path, map_location="cpu")
         self.actor.load_state_dict(blob["params"])
@@ -293,23 +317,21 @@ class GD:
                  blob["obs_rms"].items()})
         self._epoch = int(blob["epoch"])
         self._best = float(blob["best"])
-        self.env.generator.set_state(blob["generator"])
+        self.rollout_env.generator.set_state(blob["generator"])
 
     # ------------------------------------------------------------------
     def test_gradient(self, num_params=20, seed=123,
                       eps_list=(1e-2, 1e-3, 1e-4)):
         """FD check of the policy-parameter gradient through the whole BPTT
-        path, at B = 1 and H = min(horizon, 20) with fixed episode noise.
-        Returns per eps (abs_err, rel_err, cosine) over ``num_params``
-        random coordinates."""
+        path of one episode on the env (``evaluate``'s), H = min(horizon,
+        20), with fixed episode noise. Returns per eps (abs_err, rel_err,
+        cosine) over ``num_params`` random coordinates."""
         horizon = min(self.horizon, 20)
         params = list(self.actor.parameters())
 
         def total_reward():
-            with self._episode_noise(seed):
-                rewards = self.env.batched_rollout_fn(self.policy,
-                                                      horizon)(1)[0]
-            return torch.sum(rewards)
+            with self._episode_noise(seed, self.env):
+                return torch.sum(self._episode_rewards(horizon))
 
         grads = _grads(total_reward(), params)
         flat_g = torch.cat([g.reshape(-1) for g in grads])

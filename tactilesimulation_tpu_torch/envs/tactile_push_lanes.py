@@ -1,19 +1,19 @@
 """Lane-major (batch-last) batched TactilePush: the rollout hot path.
 
-Port of ``tactilesimulation_tpu/envs/tactile_push_lanes.py``: one chord
-factor per env step (refresh 0), chord budget max(solver_max_iter + 2, 8),
-and the exact IFT adjoint. ``rebuild_solver(mega="auto")`` picks the
-stepper:
+Port of ``tactilesimulation_tpu/envs/tactile_push_lanes.py``, with its
+solver options (``rebuild_solver``): by default one chord factor per env
+step (refresh 0), chord budget max(solver_max_iter + 2, 8), and the exact
+IFT adjoint; ``solver_refresh=1, solver_bwd='exact'`` is the single
+instance's step, lane by lane. ``rebuild_solver`` picks the stepper:
 
-- the fused megastep (``ops/megastep.py``: K2 forward, K3 backward) when
-  the model lives on a CUDA device and the scene passes
-  ``megastep.supported``;
+- the fused megastep (``ops/megastep.py``: K2 forward, K3 backward) at
+  refresh 0 with the exact adjoint, when the model lives on a CUDA device
+  and the scene passes ``megastep.supported``;
 - otherwise the lanes stepper (``sim/lanes.build_env_step``) with the
-  contact op K1 in every residual: per env step K1 runs 1 (Jacobian
-  build) + frame_skip x (1 + max_iter) (chord) times, 46 on TactilePush.
+  contact op K1 in every residual (``fused``).
 
-The tactile observation runs K1 once per env step on either path (47 per
-env step on the lanes stepper), and its backward is K1's plain twin.
+The tactile observation runs K1 once per env step on either path, and its
+pullback K1T.
 
 Rollouts keep the autograd graph: a loss on the rewards differentiates to
 the policy's parameters (BPTT). Randomness comes from a ``torch.Generator``;
@@ -28,6 +28,7 @@ import math
 from typing import Callable, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import lane_contact, megastep
 from ..sim import lanes
@@ -53,10 +54,12 @@ class TactilePushLanes:
     """
 
     def __init__(self, observation_type: str = "tactile_flatten", *,
-                 device="cuda", dtype=torch.float32, max_iter: int = 0,
+                 device="cuda", dtype=torch.float32, solver_refresh: int = 0,
+                 solver_bwd: str = "exact", max_iter: int = 0, fused: bool = True,
                  seed: int = 0, env: tactile_push.TactilePushEnv = None):
         """``env``: the single-instance env whose scene to batch (its own
-        device and dtype); a new bundled scene when None."""
+        device and dtype); a new bundled scene when None. The solver
+        options are ``rebuild_solver``'s."""
         if env is None:
             env = tactile_push.make(observation_type, device=device,
                                     dtype=dtype)
@@ -72,21 +75,41 @@ class TactilePushLanes:
         self.max_episode_steps = env.max_episode_steps
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
-        pw, meta = lane_contact.make_pair_wrenches(self.struct)
-        self._pw = (pw, meta)
-        self.pair_wrenches = pw
-        self.rebuild_solver(max_iter=max_iter)
+        self.rebuild_solver(refresh=solver_refresh, bwd_mode=solver_bwd,
+                            max_iter=max_iter, fused=fused)
 
-    def rebuild_solver(self, max_iter: int = 0, mega="auto"):
-        """(Re)build the frame_skip-substep env step (the JAX package's
-        ``rebuild_solver`` at refresh 0, bwd_mode 'exact'): the fused
-        megastep (K2/K3) when ``mega`` is true, or "auto" and the model is on
-        a CUDA device and the scene is ``megastep.supported``; the lanes
-        stepper with K1 otherwise. ``max_iter`` 0 keeps the amortized chord
-        budget max(solver_max_iter + 2, 8)."""
-        self.max_iter = max_iter or max(self.struct.solver_max_iter + 2, 8)
+    def rebuild_solver(self, *, refresh: int = 0, bwd_mode: str = "exact",
+                       max_iter: int = 0, fused: bool = True, mega="auto"):
+        """(Re)build the frame_skip-substep env step, by the JAX package's
+        rules:
+
+        - ``refresh``: the chord factor's schedule
+          (``lanes.factor_substeps``); ``bwd_mode``: the chord adjoint
+          (``lanes.chord_bwd``: exact, fwdfac, stale, refine<k>);
+        - chord budget: max(solver_max_iter + 2, 8) at refresh 0 with
+          ``max_iter`` 0 (the amortized chord), else ``max_iter`` or the
+          scene's ``solver_max_iter``;
+        - ``fused``: contact (and the tactile observation) through the
+          pair-wrench op: K1 / K1T on a CUDA device, K1's plain twin on
+          the CPU (the route the port's CPU tests hold to JAX; the JAX
+          package's "auto" takes its kernel on its accelerator only);
+          False takes the plain ``lanes.contact_terms`` and
+          ``lanes.tactile_field``;
+        - ``mega``: the fused megastep (K2/K3); "auto" takes it on a CUDA
+          device at refresh 0 with the exact adjoint where
+          ``megastep.supported``; any other option takes the lanes
+          stepper."""
+        if max_iter == 0 and refresh == 0:
+            max_iter = max(self.struct.solver_max_iter + 2, 8)
+        self.solver_refresh, self.solver_bwd = refresh, bwd_mode
+        self.max_iter = max_iter or self.struct.solver_max_iter
+        pw = (lane_contact.make_pair_wrenches(self.struct) if fused
+              else (None, None))
+        self._pw = pw if pw[0] is not None else None
+        self.pair_wrenches = pw[0]
         if mega == "auto":
-            mega = (self.device.type == "cuda"
+            mega = (self.device.type == "cuda" and refresh == 0
+                    and bwd_mode == "exact"
                     and megastep.supported(self.struct, self.model))
         self.solver_mega = bool(mega)
         if self.solver_mega:
@@ -96,7 +119,8 @@ class TactilePushLanes:
             self.megastep = self._multi_step.op
         else:
             self._multi_step = lanes.build_env_step(
-                self.struct, self.frame_skip, max_iter=self.max_iter,
+                self.struct, self.frame_skip, refresh=refresh,
+                bwd_mode=bwd_mode, max_iter=self.max_iter,
                 fused_pw=self._pw)
             self.megastep = None
 
@@ -119,9 +143,12 @@ class TactilePushLanes:
 
     # -- api ----------------------------------------------------------------
     def tactile(self, q, v):
-        """(M*3, B) sensor-frame marker field through K1."""
-        tac = lanes.tactile_field_fused(self.struct, self.model, q, v,
-                                        *self._pw)
+        """(M*3, B) sensor-frame marker field, through K1 when ``fused``."""
+        if self._pw is not None:
+            tac = lanes.tactile_field_fused(self.struct, self.model, q, v,
+                                            *self._pw)
+        else:
+            tac = lanes.tactile_field(self.struct, self.model, q, v)
         return tac.reshape(-1, q.shape[1])
 
     def reset(self, B: int) -> Tuple[LanePushState, torch.Tensor]:
@@ -166,8 +193,13 @@ class TactilePushLanes:
         img = tactile.reshape(TACTILE_ROWS, TACTILE_COLS, 3, B)
         return img.permute(3, 2, 0, 1), state3.T
 
-    def step(self, state: LanePushState, u):
-        """u: (B, ndof_u) batch-first (policy output layout)."""
+    def step_noise(self, state: LanePushState):
+        """The draws one step takes."""
+        return self._draw("disturbance", state.sim.q.shape[1])
+
+    def step(self, state: LanePushState, u, noise=None):
+        """u: (B, ndof_u) batch-first (policy output layout); ``noise``:
+        the step's draws (``step_noise``), drawn here when None."""
         model = self.model
         dtype = state.sim.q.dtype
         B = state.sim.q.shape[1]
@@ -175,7 +207,8 @@ class TactilePushLanes:
         action = torch.tanh(ul)
 
         # disturbance: resample every 10 steps w.p. 0.5, keep otherwise
-        keep_zero, sampled = self._draw("disturbance", B)
+        keep_zero, sampled = (self.step_noise(state) if noise is None
+                              else noise)
         resample = (state.t % 10) == 0                              # (B,)
         new_force = torch.where(keep_zero[None], torch.zeros_like(sampled),
                                 sampled)
@@ -213,22 +246,38 @@ class TactilePushLanes:
         return new_state, obs, reward, done, info
 
     def batched_rollout_fn(self, policy: Callable, horizon: int,
-                           with_obs: bool = False):
+                           remat: bool = False, with_obs: bool = False):
         """run(B) -> (rewards (B, H), dones (B, H), infos {k: (B, H)}
         [, obs (B, H, ...)]): B episodes as ONE lane-major rollout of
         ``horizon`` env steps with actions ``policy(obs)`` (batch-first obs
         -> (B, ndof_u)); ``obs`` holds the observation each action was taken
         on. The rewards carry the autograd graph back to whatever the policy
-        differentiates (its parameters) unless grad mode is off; on the
-        mega path each env step keeps only (q, qdot, u, vs (K, n, B)) for
-        its backward."""
+        differentiates (its parameters) unless grad mode is off.
+
+        ``remat`` (the JAX package's ``jax.checkpoint`` of each step): on
+        the lanes stepper each env step with its policy call is one
+        non-reentrant checkpoint, rerun in the backward (its K1 and K1T
+        forward launches twice). On the mega path ``remat`` changes
+        nothing: K2 already keeps only (q, qdot, u, vs (K, n, B)) per env
+        step for K3, so rerunning K2 in the backward would buy no memory
+        worth its time; the env step's small host graph (observation,
+        reward, policy) stays."""
+        def body(state, obs, noise):
+            return self.step(state, policy(obs), noise)
+
+        if remat and not self.solver_mega and torch.is_grad_enabled():
+            call = lambda *a: checkpoint(body, *a, use_reentrant=False,
+                                         preserve_rng_state=False)
+        else:
+            call = body
 
         def run(B: int):
             outs = []
             state, obs = self.reset(B)
             for _ in range(horizon):
-                state, obs2, reward, done, info = self.step(state,
-                                                            policy(obs))
+                # drawn outside the checkpoint: its rerun sees the same noise
+                noise = self.step_noise(state)
+                state, obs2, reward, done, info = call(state, obs, noise)
                 outs.append((reward, done, info, obs))
                 obs = obs2
             stack = lambda xs: torch.stack(list(xs), dim=1)

@@ -49,42 +49,71 @@ def outer_graph(model: Model, *xs):
                    for f in dataclasses.fields(model)))
 
 
-def _keep(x):
-    return x
+def _pop_caller_hooks():
+    """Pop every saved-tensor default hook a caller has pushed (a
+    non-reentrant checkpoint's, say), innermost first."""
+    ag = torch._C._autograd
+    hooks = []
+    while ag._top_saved_tensors_default_hooks(True) is not None:
+        hooks.append(ag._top_saved_tensors_default_hooks(True))
+        ag._pop_saved_tensors_default_hooks()
+    return hooks
 
 
-def _caller_hooks() -> bool:
-    """True if a caller's saved-tensor hooks are active (a non-reentrant
-    checkpoint's, say), and where torch cannot tell."""
-    top = getattr(torch._C._autograd, "_top_saved_tensors_default_hooks",
-                  None)
-    if top is None:
-        return True
-    try:
-        return top(False) is not None
-    except TypeError:
-        return top() is not None
+class _Held:
+    """A tensor saved in an inner graph that the outer graph keeps: held as
+    it is while ``inner_graph`` is open (the inner ``autograd.grad`` reads
+    it there), as the caller's pack hook packed it after."""
+    __slots__ = ("x", "packed")
 
 
 @contextlib.contextmanager
-def inner_graph():
-    """Grad mode for a graph that is built and differentiated on the spot.
+def inner_graph(keep: bool = False):
+    """Grad mode for a graph that is built and differentiated on the spot,
+    outside any caller's saved-tensor hooks.
 
-    Where a caller's saved-tensor hooks are active, its saved tensors are
-    kept as they are, past those hooks: under
-    ``torch.utils.checkpoint(use_reentrant=False)`` a tensor unpacked
-    before the backward would rerun the checkpointed function up to that
-    point, once per inner ``autograd.grad``. Elsewhere autograd saves them
-    itself: a hook that keeps a tensor holds an op's output, and through
-    it the op's own node, a reference cycle that the garbage collector
-    cannot see, so each graph built under it would stay in memory."""
-    if _caller_hooks():
-        with torch.enable_grad(), \
-                torch.autograd.graph.saved_tensors_hooks(_keep, _keep):
-            yield
-    else:
+    Under ``torch.utils.checkpoint(use_reentrant=False)`` a tensor packed
+    by the checkpoint's hooks and unpacked before the backward would rerun
+    the checkpointed function up to that point, once per inner
+    ``autograd.grad``. So the caller's hooks are popped on entry and pushed
+    back on exit, and autograd saves the inner graph's tensors itself.
+
+    ``keep``: the inner ``autograd.grad`` runs with ``create_graph``, so
+    the graph is also the outer graph's (the caller differentiates through
+    it later). Its saved tensors then go through the caller's innermost
+    pack hook as well, so that a checkpoint recomputes them in the backward
+    rather than keeping them, and each is held as it is until exit, for
+    the inner ``autograd.grad``; on exit only the packed form stays. The
+    forward and the checkpoint's recompute run the same code, so they pack
+    the same tensors one for one. (Hooks that keep the tensor past exit
+    would hold an op's output, and through it the op's own node: a
+    reference cycle that the garbage collector cannot see.)"""
+    hooks = _pop_caller_hooks()
+    held = []
+    if keep and hooks:
+        pack0, unpack0 = hooks[0]
+
+        def pack(x):
+            h = _Held()
+            h.x, h.packed = x, pack0(x)
+            held.append(h)
+            return h
+
+        def unpack(h):
+            return h.x if h.x is not None else unpack0(h.packed)
+
+        torch._C._autograd._push_saved_tensors_default_hooks(pack, unpack)
+    try:
         with torch.enable_grad():
             yield
+    finally:
+        if keep and hooks:
+            torch._C._autograd._pop_saved_tensors_default_hooks()
+        for h in held:
+            h.x = None
+        for pack, unpack in reversed(hooks):
+            torch._C._autograd._push_saved_tensors_default_hooks(pack,
+                                                                 unpack)
 
 
 _DOFS = {}
@@ -241,7 +270,7 @@ def lagrangian(struct: Structure, model: Model, q, v):
 def el_terms(struct: Structure, model: Model, q, v):
     """(dL/dq, p = dL/dv) in one reverse pass."""
     create = outer_graph(model, q, v)
-    with inner_graph():
+    with inner_graph(keep=create):
         q_, v_ = _grad_input(q), _grad_input(v)
         L = lagrangian(struct, model, q_, v_)
         dq, dv = torch.autograd.grad(L, (q_, v_), create_graph=create)
@@ -251,7 +280,7 @@ def el_terms(struct: Structure, model: Model, q, v):
 def momentum(struct: Structure, model: Model, q, v):
     """Generalized momentum p = dT/dv (equals M(q) v)."""
     create = outer_graph(model, q, v)
-    with inner_graph():
+    with inner_graph(keep=create):
         v_ = _grad_input(v)
         T = kinetic_energy(struct, model, q, v_)
         (dv,) = torch.autograd.grad(T, (v_,), create_graph=create)
@@ -330,7 +359,7 @@ def contact_terms(struct: Structure, model: Model, q, v, tactile=True):
     create = outer_graph(model, q, v)
     tabs = _group_tables(struct, q.device)
     tb = kinematics._tables(struct, q)
-    with inner_graph():
+    with inner_graph(keep=create):
         q_ = _grad_input(q)
         jp, jq, Om, be = twists(struct, model, q_, v)
         bj = tb.body_joint

@@ -31,11 +31,15 @@ differentiated, and the warm start gets no cotangent.
 The Jacobian J = dr/dv comes from n reverse-mode pullbacks of one residual
 graph (row i = the pullback of the i-th basis cotangent), run as one
 batched backward pass; JAX forms it from ``jax.linearize``. Both factor
-the ridged J with a pivoted LU.
+the ridged J with a pivoted LU. Under ``shared_adjoint()`` a solve's
+residual graph at v* and J's factor are built once and reused by every
+later backward through the same solve (the rows of a step's Jacobian,
+pulled back one by one).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple
 
@@ -155,6 +159,23 @@ def _solve(residual_fn, max_iter, tol, inputs: StepInputs, v_guess):
     return chord_sweeps(residual_fn, max_iter, tol, inputs, v_guess, factor)
 
 
+_SHARED = [0]
+
+
+@contextlib.contextmanager
+def shared_adjoint():
+    """Within this context each solve keeps its residual graph at v* and
+    the factor of J after its first backward, and every later backward
+    through the same solve (``retain_graph``) reuses them: one J build per
+    solve instead of one per pullback, the same numbers (iLQR's A and B
+    rows). The kept graph lives as long as the solve's node."""
+    _SHARED[0] += 1
+    try:
+        yield
+    finally:
+        _SHARED[0] -= 1
+
+
 class _NewtonSolve(torch.autograd.Function):
     """The chord solve with the implicit-function adjoint at v*. Its tensor
     arguments are u, q_base, p_base, gamma, v_guess and the Model's leaves
@@ -173,22 +194,29 @@ class _NewtonSolve(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        v_star, *xs = ctx.saved_tensors
         # u, q_base, p_base, gamma, then the leaves (v_guess gets none)
         need = ctx.needs_input_grad[3:7] + ctx.needs_input_grad[8:]
         with dynamics.inner_graph():
-            xs = [x.detach().requires_grad_(w) for x, w in zip(xs, need)]
-            v = v_star.detach().requires_grad_()
-            inputs = StepInputs(Model(*xs[4:]), *xs[:4])
-            r = ctx.residual_fn(v, inputs)
-            # J at v*, ridged as the chord's, solved transposed:
-            # _ridged(J)^T lam = g
-            J = _jacobian(r, v, retain_graph=True)
-            lu, piv, _ = torch.linalg.lu_factor_ex(_ridged(J))
+            kept = getattr(ctx, "adjoint", None)
+            if kept is None:
+                v_star, *xs = ctx.saved_tensors
+                xs = [x.detach().requires_grad_(w) for x, w in zip(xs, need)]
+                v = v_star.detach().requires_grad_()
+                inputs = StepInputs(Model(*xs[4:]), *xs[:4])
+                r = ctx.residual_fn(v, inputs)
+                # J at v*, ridged as the chord's, solved transposed:
+                # _ridged(J)^T lam = g
+                J = _jacobian(r, v, retain_graph=True)
+                lu, piv, _ = torch.linalg.lu_factor_ex(_ridged(J))
+                wrt = [x for x in xs if x.requires_grad]
+                kept = (r, wrt, lu, piv)
+                if _SHARED[0]:
+                    ctx.adjoint = kept
+            r, wrt, lu, piv = kept
             lam = torch.linalg.lu_solve(lu, piv, g[:, None],
                                         adjoint=True)[:, 0]
-            wrt = [x for x in xs if x.requires_grad]
             got = iter(torch.autograd.grad(r, wrt, -lam,
+                                           retain_graph=bool(_SHARED[0]),
                                            materialize_grads=True)
                        if wrt else ())
         grads = [next(got) if w else None for w in need]

@@ -1,6 +1,6 @@
 """Lane-major (batch-last) physics core: the batched hot path, in PyTorch.
 
-Port of ``tactilesimulation_tpu/sim/lanes.py`` (BDF1 forward path).
+Port of ``tactilesimulation_tpu/sim/lanes.py`` (the BDF1 env step).
 Quaternions are ``(4, ..., B)``, vectors ``(3, ..., B)``, generalized
 coordinates ``(n, B)``: the batch is the last (contiguous) axis, so on the
 card consecutive threads of every elementwise op touch consecutive lanes.
@@ -15,12 +15,18 @@ Differentiation:
   (the JAX package's ``make_chord_lu(reverse=True)``): the fused contact
   kernel (``ops/lane_contact.py``) is reverse-mode only.
 - ``chord_solve`` is an ``autograd.Function``: its forward is the chord
-  iteration under no graph, its backward the exact at-solution
-  implicit-function-theorem adjoint (the JAX package's ``bwd_mode='exact'``):
-  J^T rebuilt at v* from n pullbacks of one residual graph, a ridged LU,
-  lambda = J^{-T} g, and -lambda pulled back into (u, q_base, p_base).
+  iteration under no graph, its backward the implicit-function-theorem
+  adjoint in one of the JAX package's ``bwd_mode``s (``exact``: J^T
+  rebuilt at v* from n pullbacks of one residual graph, a ridged LU,
+  lambda = J^{-T} g; ``fwdfac``, ``stale``, ``refine<k>``: see
+  ``chord_bwd``), and -lambda pulled back into (u, q_base, p_base).
   Model leaves get no cotangent (the model is a constant of the port's
   training path).
+- Every graph that is built and differentiated on the spot (``el_terms``,
+  ``momentum``, the chord factor's and the adjoints' pullbacks) is built
+  under ``dynamics.inner_graph``, outside a caller's saved-tensor hooks,
+  so an env step under a non-reentrant checkpoint (``remat``) packs only
+  its outer graph.
 
 Every scatter of the JAX version (``.at[].set/add``) is out of place
 (``index_copy``/``index_add`` or list-then-stack), so autograd sees a pure
@@ -35,7 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import contact
+from . import contact, dynamics
 from .integrators import ridge_eps
 from .types import Model, Structure
 from ..model.schema import (GEOM_CUBOID, GEOM_CYLINDER, GEOM_SPHERE,
@@ -328,7 +334,7 @@ def el_terms(struct: Structure, model: Model, q, v):
     the lane-sum is the per-lane gradient. Differentiable again when q or v
     carries an outer graph (``create_graph``)."""
     create = _outer_graph(q, v)
-    with torch.enable_grad():
+    with dynamics.inner_graph(keep=create):
         q_, v_ = _grad_input(q), _grad_input(v)
         L = torch.sum(lagrangian(struct, model, q_, v_))
         dq, dv = torch.autograd.grad(L, (q_, v_), create_graph=create)
@@ -338,7 +344,7 @@ def el_terms(struct: Structure, model: Model, q, v):
 def momentum(struct: Structure, model: Model, q, v):
     """dL/dv == dT/dv (V does not depend on v)."""
     create = _outer_graph(q, v)
-    with torch.enable_grad():
+    with dynamics.inner_graph(keep=create):
         v_ = _grad_input(v)
         L = torch.sum(lagrangian(struct, model, q, v_))
         (dv,) = torch.autograd.grad(L, (v_,), create_graph=create)
@@ -915,7 +921,7 @@ def make_chord_lu(residual_fn, inputs: StepInputs, v_guess):
     only."""
     inputs = _detach_inputs(inputs)
     n = v_guess.shape[0]
-    with torch.enable_grad():
+    with dynamics.inner_graph():
         v = v_guess.detach().requires_grad_()
         r = residual_fn(v, inputs)
         basis = torch.eye(n, dtype=v.dtype, device=v.device)[:, :, None]
@@ -947,6 +953,18 @@ def _chord(residual_fn, max_iter, tol, inputs, v_guess, lu):
     return v_best
 
 
+def _residual_graph(residual_fn, inputs: StepInputs, v_star):
+    """r at v* with (u, q_base, p_base) and v as fresh leaves; call under
+    ``dynamics.inner_graph``."""
+    u = inputs.u.detach().requires_grad_()
+    q_base = inputs.q_base.detach().requires_grad_()
+    p_base = inputs.p_base.detach().requires_grad_()
+    v = v_star.detach().requires_grad_()
+    r = residual_fn(v, StepInputs(model=inputs.model, u=u, q_base=q_base,
+                                  p_base=p_base, gamma=inputs.gamma.detach()))
+    return r, v, (u, q_base, p_base)
+
+
 def chord_adjoint(residual_fn, inputs: StepInputs, v_star, g):
     """The exact at-solution IFT adjoint of the chord solve (the JAX
     package's ``_chord_bwd(..., 'exact', ...)``): (u_bar, q_base_bar,
@@ -956,78 +974,150 @@ def chord_adjoint(residual_fn, inputs: StepInputs, v_star, g):
     of J = dr/dv, then lambda = (ridged J^T)^{-1} g, and -lambda is pulled
     back through the same graph into the inputs."""
     n = v_star.shape[0]
-    with torch.enable_grad():
-        u = inputs.u.detach().requires_grad_()
-        q_base = inputs.q_base.detach().requires_grad_()
-        p_base = inputs.p_base.detach().requires_grad_()
-        v = v_star.detach().requires_grad_()
-        r = residual_fn(v, StepInputs(model=inputs.model, u=u, q_base=q_base,
-                                      p_base=p_base,
-                                      gamma=inputs.gamma.detach()))
+    with dynamics.inner_graph():
+        r, v, wrt = _residual_graph(residual_fn, inputs, v_star)
         basis = torch.eye(n, dtype=v.dtype, device=v.device)[:, :, None]
         rows = [torch.autograd.grad(r, v, basis[i].expand_as(r),
                                     retain_graph=True)[0]
                 for i in range(n)]
         JT = torch.stack(rows).transpose(0, 1)   # JT[k, i] = dr_i/dv_k
         lam = gauss_solve(gauss_factor(_ridge(JT)), g.to(v.dtype))
-        return torch.autograd.grad(r, (u, q_base, p_base), -lam,
-                                   allow_unused=True)
+        return torch.autograd.grad(r, wrt, -lam, allow_unused=True)
+
+
+def parse_bwd_mode(bwd_mode: str):
+    """(kind, k) of a chord adjoint mode: kind one of exact, fwdfac, stale,
+    refine, and k the refinement sweeps (2 for a bare ``refine``, None for
+    the other kinds). Raises on any other name."""
+    if bwd_mode in ("exact", "fwdfac", "stale"):
+        return bwd_mode, None
+    k = bwd_mode[6:] if bwd_mode.startswith("refine") else None
+    if k is None or not (k == "" or k.isdigit()):
+        raise ValueError(f"bwd_mode {bwd_mode!r}: one of exact, fwdfac, "
+                         "stale, refine, refine<k>")
+    return "refine", int(k) if k else 2
+
+
+def chord_bwd(residual_fn, bwd_mode: str, inputs: StepInputs, v_star, lu, g):
+    """The chord solve's adjoint in ``bwd_mode`` (the JAX package's
+    ``_chord_bwd``): (u_bar, q_base_bar, p_base_bar) for the cotangent ``g``
+    of v*. ``lu`` is the factor the forward saved:
+
+    - ``exact``: ``chord_adjoint`` (J^T rebuilt at v*; ``lu`` unused);
+    - ``fwdfac``: ``lu`` is the exact J at v*, factored in the forward:
+      lambda = ``gauss_solve_T(lu, g)``, the same matrix as ``exact``;
+    - ``stale``: the same solve with the forward's chord factor;
+    - ``refine<k>`` (k = 2 when bare): iterative refinement of
+      J^T lambda = g with the chord factor as preconditioner and exact
+      J^T lambda products (pullbacks of one residual graph at v*); per
+      lane the lambda with the smallest exact residual is kept (a NaN
+      residual compares False and is never kept)."""
+    kind, k = parse_bwd_mode(bwd_mode)
+    if kind == "exact":
+        return chord_adjoint(residual_fn, inputs, v_star, g)
+    with dynamics.inner_graph():
+        r, v, wrt = _residual_graph(residual_fn, inputs, v_star)
+        g = g.to(v.dtype)
+        lam = gauss_solve_T(lu, g)
+        if kind == "refine":
+            def resid(lam):
+                JT_lam = torch.autograd.grad(r, v, lam, retain_graph=True)[0]
+                res = g - JT_lam
+                return res, torch.sum(res * res, dim=0)
+
+            res, rn = resid(lam)
+            lam_best, rn_best = lam, rn
+            for _ in range(k):
+                lam = lam + gauss_solve_T(lu, res)
+                res, rn = resid(lam)
+                better = rn < rn_best
+                lam_best = torch.where(better, lam, lam_best)
+                rn_best = torch.where(better, rn, rn_best)
+            lam = lam_best
+        return torch.autograd.grad(r, wrt, -lam, allow_unused=True)
 
 
 class _ChordSolveFn(torch.autograd.Function):
-    """v* = chord(inputs) with the exact IFT adjoint as its backward."""
+    """v* = chord(inputs) with the IFT adjoint of ``bwd_mode`` as its
+    backward."""
 
     @staticmethod
-    def forward(ctx, residual_fn, max_iter, tol, model, lu, v_guess, u,
-                q_base, p_base, gamma):
+    def forward(ctx, residual_fn, max_iter, tol, bwd_mode, model, lu,
+                v_guess, u, q_base, p_base, gamma):
         inputs = StepInputs(model=model, u=u, q_base=q_base, p_base=p_base,
                             gamma=gamma)
         v_star = _chord(residual_fn, max_iter, tol, inputs, v_guess, lu)
+        if bwd_mode == "fwdfac":
+            # the exact J at v*, factored here in the forward
+            lu = make_chord_lu(residual_fn, inputs, v_star)
         ctx.residual_fn = residual_fn
+        ctx.bwd_mode = bwd_mode
         ctx.model = model
-        ctx.save_for_backward(u, q_base, p_base, gamma, v_star)
+        saved = (u, q_base, p_base, gamma, v_star)
+        ctx.save_for_backward(*saved, *(() if bwd_mode == "exact"
+                                        else (lu,)))
         return v_star
 
     @staticmethod
     def backward(ctx, g):
-        u, q_base, p_base, gamma, v_star = ctx.saved_tensors
+        u, q_base, p_base, gamma, v_star, *lu = ctx.saved_tensors
         inputs = StepInputs(model=ctx.model, u=u, q_base=q_base,
                             p_base=p_base, gamma=gamma)
-        gu, gq, gp = chord_adjoint(ctx.residual_fn, inputs, v_star, g)
-        return (None, None, None, None, None, None, gu, gq, gp, None)
+        gu, gq, gp = chord_bwd(ctx.residual_fn, ctx.bwd_mode, inputs, v_star,
+                               lu[0] if lu else None, g)
+        return (None,) * 7 + (gu, gq, gp, None)
 
 
-def chord_solve(residual_fn, max_iter, tol, inputs: StepInputs, v_guess, lu):
-    """Chord solve with the exact IFT adjoint (``bwd_mode='exact'``).
+def chord_solve(residual_fn, max_iter, tol, bwd_mode: str,
+                inputs: StepInputs, v_guess, lu):
+    """Chord solve with the IFT adjoint of ``bwd_mode`` (``chord_bwd``).
 
     Gradients reach ``inputs.u``, ``q_base`` and ``p_base``; the guess and
     the factor are solver ingredients and get none."""
+    parse_bwd_mode(bwd_mode)
     if not (torch.is_grad_enabled()
             and any(x.requires_grad for x in (inputs.u, inputs.q_base,
                                               inputs.p_base))):
         with torch.no_grad():
             return _chord(residual_fn, max_iter, tol, inputs, v_guess, lu)
-    return _ChordSolveFn.apply(residual_fn, max_iter, tol, inputs.model,
-                               lu.detach(), v_guess.detach(), inputs.u,
-                               inputs.q_base, inputs.p_base, inputs.gamma)
+    return _ChordSolveFn.apply(residual_fn, max_iter, tol, bwd_mode,
+                               inputs.model, lu.detach(), v_guess.detach(),
+                               inputs.u, inputs.q_base, inputs.p_base,
+                               inputs.gamma)
 
 
-def build_env_step(struct: Structure, frame_skip: int, *, max_iter: int = 0,
+def factor_substeps(frame_skip: int, refresh: int):
+    """The substeps of an env step that factor the chord Jacobian afresh
+    (the JAX package's schedule): ``refresh`` 0 or >= frame_skip once, at
+    the entry state; otherwise every substep k with k % refresh == 0."""
+    refresh = refresh or frame_skip
+    return [k for k in range(frame_skip)
+            if k == 0 or (refresh < frame_skip and k % refresh == 0)]
+
+
+def build_env_step(struct: Structure, frame_skip: int, *, refresh: int = 0,
+                   bwd_mode: str = "exact", max_iter: int = 0,
                    fused_pw=None, moving_point: bool = False):
-    """``frame_skip`` implicit BDF1 substeps under one held control, with ONE
-    chord factor per env step (the JAX package's ``refresh=0``) and the
-    exact IFT adjoint (``bwd_mode='exact'``).
+    """``frame_skip`` implicit BDF1 substeps under one held control.
 
     env_step(model, state, u) -> state', differentiable w.r.t. the state and
-    ``u``. ``max_iter`` overrides the scene's chord budget;
+    ``u``. The chord Jacobian is factored at the substeps of
+    ``factor_substeps(frame_skip, refresh)``: once per env step at refresh
+    0 (the amortized default), at every substep at refresh 1, which with
+    ``bwd_mode='exact'`` is the single instance's step run frame_skip
+    times. ``bwd_mode`` picks the chord solve's adjoint (``chord_bwd``).
+    ``max_iter`` overrides the scene's chord budget;
     ``fused_pw = (pw, meta)`` from ``ops.lane_contact.make_pair_wrenches``
     routes contact through K1; ``moving_point`` takes the megastep's
     contact-torque convention (``contact_terms``).
     """
     if struct.integrator.upper() != "BDF1":
-        raise ValueError(f"{struct.integrator}: only BDF1 is ported")
+        raise ValueError(f"{struct.integrator}: only BDF1 is ported to the "
+                         "lanes stepper (BDF2 is ROADMAP queue 1, item 6)")
+    parse_bwd_mode(bwd_mode)
     residual_fn = make_residual(struct, fused_pw, moving_point)
     miter = max_iter or struct.solver_max_iter
+    fresh = set(factor_substeps(frame_skip, refresh))
 
     def env_step(model: Model, state: LaneSimState, u):
         dtype = state.q.dtype
@@ -1037,15 +1127,15 @@ def build_env_step(struct: Structure, frame_skip: int, *, max_iter: int = 0,
         u = u.to(dtype)
         gamma = model.h.to(dtype).reshape(1, 1)
         lu = None
-        for _ in range(frame_skip):
+        for k in range(frame_skip):
             inputs = StepInputs(model=model, u=u, q_base=state.q,
                                 p_base=momentum(struct, model, state.q,
                                                 state.qdot),
                                 gamma=gamma)
-            if lu is None:
+            if k in fresh:
                 lu = make_chord_lu(residual_fn, inputs, state.qdot)
-            v_new = chord_solve(residual_fn, miter, tol, inputs, state.qdot,
-                                lu)
+            v_new = chord_solve(residual_fn, miter, tol, bwd_mode, inputs,
+                                state.qdot, lu)
             state = LaneSimState(q=state.q + gamma * v_new, qdot=v_new,
                                  q_prev=state.q, qdot_prev=state.qdot,
                                  t=state.t + 1)

@@ -10,7 +10,9 @@ seeded states in contact, to 1e-10 of each output's scale:
 - contact: the row-major ``dynamics.contact_terms`` and ``tactile_field``
   and the points-major ``dense_single.contact_terms_points_major``.
 The JAX side is one jitted function per scene. Also: a graph built under
-``dynamics.inner_graph`` is freed with its last reference.
+``dynamics.inner_graph`` is freed with its last reference, one kept for the
+outer graph is packed by a caller's hooks, and BPTT under a non-reentrant
+checkpoint leaves nothing behind.
 """
 
 import dataclasses
@@ -125,12 +127,12 @@ def test_contact(scene):
 
 
 def test_inner_graph_frees_its_graph():
-    """Where no caller's saved-tensor hooks are active, ``inner_graph``
-    leaves saving to autograd, and an op's output saved by its own node is
-    freed with its last reference (hooks that keep the tensor made a cycle
-    the garbage collector cannot see: each StableGrasp substep kept about
-    25 MB on the CPU). Under a caller's hooks (a non-reentrant
-    checkpoint's) it still keeps its saved tensors past them."""
+    """``inner_graph`` leaves saving to autograd, so an op's output saved by
+    its own node is freed with its last reference (hooks that keep the
+    tensor made a cycle the garbage collector cannot see: each StableGrasp
+    substep kept about 25 MB on the CPU). Under a caller's hooks (a
+    non-reentrant checkpoint's, two of them nested here) it steps outside
+    them and pushes them back, innermost on top, on exit."""
     top = torch._C._autograd._top_saved_tensors_default_hooks
 
     def built():
@@ -143,8 +145,99 @@ def test_inner_graph_frees_its_graph():
         ref = built()
     gc.collect()
     assert ref() is None
-    outer = (lambda t: t, lambda t: t)
-    with torch.autograd.graph.saved_tensors_hooks(*outer):
+    packed = []
+    outer = (lambda t: packed.append(t) or t, lambda t: t)
+    inner = (lambda t: packed.append(t) or t, lambda t: t)
+    with torch.autograd.graph.saved_tensors_hooks(*outer), \
+            torch.autograd.graph.saved_tensors_hooks(*inner):
         with dynamics.inner_graph():
-            assert top(False)[0] is dynamics._keep
-        assert top(False)[0] is outer[0]
+            assert top(False) is None
+            ref = built()
+        assert top(False)[0] is inner[0]
+        assert packed == []
+        with dynamics.inner_graph():
+            pass
+        assert top(False)[0] is inner[0]
+    assert top(False) is None
+    gc.collect()
+    assert ref() is None
+
+
+def test_inner_graph_keep_packs_through_the_caller():
+    """``inner_graph(keep=True)``, an inner grad with ``create_graph`` whose
+    graph the caller differentiates later: under a caller's hooks (two
+    nested) the graph's saved tensors go through the innermost pack hook
+    (so a checkpoint recomputes them instead of keeping them), the inner
+    grad reads them as they are (no unpack through the caller before
+    exit), the outer backward reads them through the caller's unpack, and
+    the graph is freed with its last reference."""
+    top = torch._C._autograd._top_saved_tensors_default_hooks
+    outer_packed, packed, unpacked = [], [], []
+    outer = (lambda t: outer_packed.append(1) or t, lambda t: t)
+    inner = (lambda t: packed.append(1) or t.detach().clone(),
+             lambda t: unpacked.append(1) or t)
+    x = torch.linspace(0.1, 0.3, 3, dtype=torch.float64, requires_grad=True)
+    with torch.autograd.graph.saved_tensors_hooks(*outer), \
+            torch.autograd.graph.saved_tensors_hooks(*inner):
+        with dynamics.inner_graph(keep=True):
+            x_ = x.view_as(x)
+            e = torch.exp(x_)                    # exp saves its output
+            (g,) = torch.autograd.grad(torch.sum(e * x_), x_,
+                                       create_graph=True)
+            assert packed and not unpacked
+        assert top(False)[0] is inner[0]
+    assert top(False) is None and not outer_packed
+    ref = weakref.ref(e)
+    del e, x_
+    (gg,) = torch.autograd.grad(g.sum(), x)
+    assert unpacked
+    torch.testing.assert_close(gg, torch.exp(x) * (x + 2), rtol=1e-15,
+                               atol=0)
+    del g
+    gc.collect()
+    assert ref() is None
+
+
+def _live_tensors():
+    gc.collect()
+    return sum(1 for o in gc.get_objects() if isinstance(o, torch.Tensor))
+
+
+def test_inner_graph_frees_its_graph_under_checkpoint():
+    """BPTT with remat (one non-reentrant checkpoint per step) on
+    RollingBall 8x8 pressed, float64: repeated backward passes leave no
+    tensor behind (with identity hooks under the checkpoint each pass kept
+    5 more), and the values and gradients equal those without remat to
+    1e-12 of scale. The checkpoint itself checks that its recompute packs
+    the forward's saved tensors one for one."""
+    struct, model = torch_scenes.rolling_ball(resolution=8)
+    model = model.to("cpu", torch.float64)
+    rng = np.random.RandomState(0)
+    q = model.q_init.clone()
+    q[2] = -0.0153
+    q[3:5] = torch.as_tensor(2e-3 * rng.randn(2))
+    v = torch.as_tensor(0.005 * rng.randn(q.shape[0]))
+    from tactilesimulation_tpu_torch.sim import simulation
+    sim = simulation.Simulator(struct, model)
+    us = torch.as_tensor(0.1 * rng.randn(2, struct.ndof_u))
+
+    def run(remat):
+        u = us.clone().requires_grad_()
+        _, qs, vars_, tacs = sim.make_rollout_dense(remat=remat)(
+            model, sim.init_state(q=q, qdot=v), u)
+        loss = qs.sum() + vars_.sum() + 1e2 * tacs.sum()
+        (g,) = torch.autograd.grad(loss, u)
+        return loss.detach(), g
+
+    want = run(False)
+    got = run(True)
+    again = run(True)
+    base = _live_tensors()
+    for _ in range(2):
+        again = run(True)
+        assert _live_tensors() == base
+    for a, b, c in zip(got, again, want):
+        scale = float(c.abs().max())
+        assert scale > 0
+        assert float((a - c).abs().max()) <= 1e-12 * scale
+        assert float((b - c).abs().max()) <= 1e-12 * scale
