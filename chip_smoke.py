@@ -224,6 +224,33 @@ seconds):
               kernel launches (the single-instance core, no tactile
               read); s per iteration of each.
 
+14. batch   - slice 12, the batched core, the lanes stepper's BDF2
+              Newton step and the batched tactile read: (a) the read's
+              batched entry (one launch for B states) at BATCH_B states of
+              RollingBall 200 x 200 and BATCH_READ_B of each READ_SCENES
+              scene, float64 and float32, against its plain version
+              (tactile_field_ref over the batch) under the read rule and
+              against B single launches bit for bit, one launch a batched
+              read; its times at B = BATCH_B f32 (back to back, device) beside
+              one state's device time, the plain version's and the bound
+              (the plan once, B states and B fields; the operations counted
+              per instance by megastep_host.HostTactileRead); (b)
+              rolling_ball(8) at BATCH_CROSS_B from the pressed state, 10
+              steps and 2 reads, through the batched core (one read launch a
+              chunk) and through the --lanes rollout (lanes.build_step,
+              BDF2, plain lane field), and the VJP of a TactilePush lanes
+              env step into the state, u and Model leaves: card against CPU,
+              float64 within BATCH_F64_TOL, float32 by ROLL_F32_VS_F64;
+              (c) the RollingBall CLI (examples/rolling_ball_speed.py) at
+              200 x 200 f32 with --batch BATCH_B (the main path: one read
+              launch a chunk, counted for the batched entry) and --lanes
+              --batch BATCH_B (no kernel), the steps cut so that a probe
+              chunk predicts the CLI's five runs within BATCH_CLI_BUDGET_S;
+              shapes, finite q, the alike copies within BATCH_COPIES_TOL;
+              then ms, instance steps/s and eager aten ops of a step at
+              B = 1 and B = BATCH_B, and the device's busy share over a
+              batched step.
+
 Phases 4-7 run in this process (MAIN_PHASES); the others, in the groups of
 WORKERS, each in a process of its own (``chip_smoke.py --child OUT PHASE...``,
 which also runs a group alone), all started after kernels and joined after
@@ -438,7 +465,7 @@ INS_SETTLE_CUT = ((2, 2, 2), 2)
 MAIN_PHASES = ("slice", "train", "cross", "rolling")
 WORKERS = (("insertion",), ("grasp",), ("dclaw", "grasp_cross"),
            ("ppo", "adjoint"), ("optim_cli", "optim_traj"),
-           ("optim_solver",))
+           ("optim_solver",), ("batch",))
 WORKER_THREADS = 1
 MAIN_THREADS = 2
 DEADLINE_S = 1140.0
@@ -512,6 +539,25 @@ OPT_PUSH_BUDGET_S = 70.0
 OPT_MEM_H = 4
 OPT_MEM_GROWTH = 0.05
 OPT_TRAJ_REL = 1e-9
+# the batch phase (slice 12): the batched read at BATCH_B states of
+# RollingBall 200 x 200 and at BATCH_READ_B states of each READ_SCENES
+# scene (instance 0 at read_state's state, the others moved by BATCH_MOVE x
+# a normal draw: q, v), under the read rule (READ_TOL,
+# READ_ROUNDING_ROWS), one launch a batched read and bit-equal to B single
+# launches; rolling_ball(8) at BATCH_CROSS_B from the pressed state, the
+# batched core and the lanes stepper, and the lanes Model-leaf VJP on
+# TactilePush, card float64 within BATCH_F64_TOL of the CPU's scale (the
+# same algorithm to round-off), float32 by ROLL_F32_VS_F64; the CLI's
+# --batch BATCH_B and --lanes --batch BATCH_B at 200 x 200 f32, the steps
+# cut so that a probe predicts the CLI's five runs within
+# BATCH_CLI_BUDGET_S each, the copies (alike) within BATCH_COPIES_TOL of
+# scale of each other
+BATCH_B, BATCH_READ_B, BATCH_CROSS_B = 8, 3, 3
+BATCH_MOVE = (1e-4, 1e-2)
+BATCH_SEED = 12
+BATCH_F64_TOL = ADJ_F64_TOL
+BATCH_CLI_BUDGET_S = 60.0
+BATCH_COPIES_TOL = 1e-6
 MEGA = "tactilesimulation_tpu_torch/csrc/megastep.cu"
 LANE = "tactilesimulation_tpu_torch/csrc/lane_contact.cu"
 DENSE = "tactilesimulation_tpu_torch/csrc/dense_contact.cu"
@@ -532,6 +578,9 @@ KERNELS = [dict(name="K1 lane_contact", key="K1", lib="lane_contact",
                 replaces="tactilesimulation_tpu/ops/dense_contact.py:174"),
            dict(name="K4 tactile read", key="K4R", lib="dense_contact",
                 route="cuda", source=DENSE,
+                replaces="tactilesimulation_tpu/ops/dense_contact.py:174"),
+           dict(name="K4 tactile read, batched", key="K4RB",
+                lib="dense_contact", route="cuda", source=DENSE,
                 replaces="tactilesimulation_tpu/ops/dense_contact.py:174")]
 PPO_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "examples", "TactilePushExp", "cfg", "ppo_tactile.yaml")
@@ -4083,6 +4132,342 @@ class Smoke:
                                  "optimisers")
 
 
+    # 14 ------------------------------------------------------------------
+    @staticmethod
+    def batch_states(q1, v1, B, seed=BATCH_SEED):
+        """(B, n) float64 states on q1's device: instance 0 at (q1, v1), each
+        other moved by BATCH_MOVE (q by the first, v by the second) x a
+        standard normal draw per coordinate."""
+        rng = np.random.RandomState(seed)
+        t = lambda a: torch.as_tensor(a, dtype=torch.float64,
+                                      device=q1.device)
+        dq, dv = BATCH_MOVE
+        move = lambda x, d: x + d * t(rng.randn(B, x.shape[0])) * t(
+            (np.arange(B) > 0).astype(np.float64)[:, None])
+        return (move(q1, dq).contiguous(), move(v1, dv).contiguous())
+
+    def batch_read_check(self, name, dev, B):
+        """The batched read at B states of read_state's ``name`` (one launch)
+        against its plain version (READ_TOL of each instance's scale, float32
+        rows set aside as in read_check) and against B single launches
+        (bit-equal). Returns the float32 kernel's max abs error from the
+        float32 plain version on the rows kept."""
+        from tactilesimulation_tpu_torch.ops import dense_contact
+        from tactilesimulation_tpu_torch.ops import tactile_query
+        struct, m64, q1, v1 = read_case(name, torch.float64, dev)
+        q64, v64 = self.batch_states(q1, v1, B)
+        plain = tactile_query.tactile_field_ref
+        ref64 = plain(struct, m64, q64, v64)                 # (B, N, 3)
+        N = ref64.shape[1]
+        scale = ref64.abs().amax(dim=(1, 2))                 # per instance
+        if not float(scale[0]) > 0:
+            raise AssertionError(f"batched read {name}: no contact")
+        row = lambda a, b: (a.double() - b.double()).abs().amax(dim=-1)
+        errs, set_aside = {}, 0
+        for dtype in (torch.float64, torch.float32):
+            m = m64 if dtype == torch.float64 else m64.to(dev, dtype)
+            q, v = q64.to(dtype), v64.to(dtype)
+            dense_contact.reset_counts()
+            got = tactile_query.tactile_field(struct, m, q, v)
+            torch.cuda.synchronize()
+            counts = (dense_contact.read_launches, dense_contact.launches)
+            if counts != (1, 0):
+                raise AssertionError(f"batched read {name} {dtype}: "
+                                     f"{counts} read and points launches "
+                                     "for one batched read")
+            if got.dtype != dtype or tuple(got.shape) != (B, N, 3):
+                raise AssertionError(f"batched read {name}: {got.dtype} "
+                                     f"{tuple(got.shape)}")
+            plan = tactile_query.read_plan(struct, m)
+            singles = torch.stack([dense_contact.tactile_read(plan, q[b],
+                                                              v[b])
+                                   for b in range(B)])
+            if not torch.equal(got, singles):
+                raise AssertionError(f"batched read {name} {dtype}: not the "
+                                     f"{B} single launches bit for bit")
+            tol = READ_TOL[dtype] * scale[:, None]           # (B, 1)
+            if dtype == torch.float64:
+                err = row(got, ref64)
+                if not bool((err <= tol).all()):
+                    raise AssertionError(
+                        f"batched read {name} f64: rel err "
+                        f"{(err / scale[:, None]).amax(dim=1).tolist()}")
+                errs[dtype] = float((err / scale[:, None].clamp(
+                    min=1e-300)).max())
+                continue
+            ref32 = plain(struct, m, q, v)
+            off = (row(ref32, ref64) > tol) | (row(got, ref64) > tol)
+            if int(off.sum(dim=1).max()) > READ_ROUNDING_ROWS * N:
+                raise AssertionError(
+                    f"batched read {name} f32: {off.sum(dim=1).tolist()} of "
+                    f"{N} rows where float32 parts from float64")
+            kept = row(got, ref32)[~off]
+            if not bool((row(got, ref32) <= tol)[~off].all()):
+                raise AssertionError(f"batched read {name} f32 off its plain "
+                                     "version")
+            errs[dtype] = float(kept.max()) if kept.numel() else 0.0
+            if bool(off.any()):
+                gen = torch.Generator(device=dev).manual_seed(0)
+                moved = lambda a: a * (1 + K1_JITTER * (2 * torch.rand(
+                    a.shape, generator=gen, device=dev,
+                    dtype=torch.float64) - 1))
+                jump = torch.zeros_like(scale[:, None].expand(B, N))
+                for _ in range(K1_JITTER_RUNS):
+                    jump = torch.maximum(jump, row(plain(
+                        struct, m64, moved(q64), moved(v64)), ref64))
+                allowed = (K1_F32_VS_F64 * jump + tol)[off]
+                if not bool((row(got, ref64)[off] <= allowed).all()):
+                    raise AssertionError(f"batched read {name} f32: a "
+                                         "set-aside row past its jump")
+                set_aside = int(off.sum())
+        print(f"  batched read {name:17s} B={B} N={N:5d}: one launch, the "
+              f"{B} single launches bit for bit; f64 rel err "
+              f"{errs[torch.float64]:.2e} (tol {READ_TOL[torch.float64]:g}), "
+              f"f32 max abs err {errs[torch.float32]:.3e} (tol "
+              f"{READ_TOL[torch.float32]:g} x each instance's scale, "
+              f"{[f'{x:.3e}' for x in scale.tolist()]}); f32 rows set "
+              f"aside {set_aside}")
+        return errs[torch.float32]
+
+    def batch(self, dev):
+        """Slice 12: the batched read, the batched core and the lanes
+        stepper's BDF2 Newton step, card against CPU, and the RollingBall
+        CLI's --batch and --lanes at 200 x 200."""
+        import megastep_host
+        from tactilesimulation_tpu_torch.ops import dense_contact
+        from tactilesimulation_tpu_torch.ops import tactile_query
+        # (a) the batched read
+        max_abs = self.batch_read_check("rolling_ball_200", dev, BATCH_B)
+        for name in READ_SCENES:
+            self.batch_read_check(name, dev, BATCH_READ_B)
+        struct, m64, q1, v1 = read_case("rolling_ball_200", torch.float64,
+                                        dev)
+        q64, v64 = self.batch_states(q1, v1, BATCH_B)
+        model = m64.to(dev, torch.float32)
+        q, v = q64.float(), v64.float()
+        plan = tactile_query.read_plan(struct, model)
+        read = lambda: dense_contact.tactile_read(plan, q, v)
+        k_ms = cuda_ms(read, 200, warmup=10)
+        d_ms = device_ms(read, 200, warmup=10)
+        d1_ms = device_ms(lambda: dense_contact.tactile_read(plan, q[0],
+                                                             v[0]),
+                          200, warmup=10)
+        p_ms = cuda_ms(lambda: tactile_query.tactile_field_ref(
+            struct, model, q, v), 10)
+        counter = megastep_host.HostTactileRead()
+        ops = sum(counter.count(struct, m64, q64[b].cpu().numpy(),
+                                v64[b].cpu().numpy())
+                  for b in range(BATCH_B))
+        # the plan and the markers once, B states in, B fields out
+        nbytes = (4 * plan.ints.numel() + 4 * plan.floats.numel()
+                  + 4 * 2 * BATCH_B * plan.n + 4 * 3 * BATCH_B * plan.N)
+        bound, by, t_b, t_o = self._bound(nbytes, ops)
+        print(f"  batched read RollingBall 200x200 f32 B={BATCH_B}: "
+              f"{k_ms:.4f} ms back to back, {d_ms:.4f} ms on the device "
+              f"(one state: {d1_ms:.4f} ms); plain {p_ms:.4f} ms; moves "
+              f"{nbytes} B ({t_b:.5f} ms), {ops} op ({t_o:.5f} ms); bound "
+              f"{bound:.5f} ms by {by} [{self.card}]")
+        self.kernel_rows["K4RB"] = dict(
+            max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+            bound_by=by, library_ms=None)
+        # (b) card against CPU
+        self.batch_cross(dev)
+        # (c) the CLI at 200 x 200, then where a batched step's time goes
+        self.batch_cli(dev)
+
+    @staticmethod
+    def card_and_cpu(dev):
+        cpu = torch.device("cpu")
+        return (("card", dev, torch.float64), ("card", dev, torch.float32),
+                ("cpu", cpu, torch.float64), ("cpu", cpu, torch.float32))
+
+    @staticmethod
+    def batch_pressed(q_init, B, seed=BATCH_SEED):
+        """RollingBall (q, v) (B, n) float64: the pad 0.3 mm into the ball,
+        the ball off centre and moving, per instance."""
+        rng = np.random.RandomState(seed)
+        q = np.repeat(np.asarray(q_init, np.float64)[None], B, axis=0)
+        q[:, 2] = -0.0153
+        q[:, 3:5] = 2e-3 * rng.randn(B, 2)
+        return q, 0.005 * rng.randn(*q.shape)
+
+    def batch_cross(self, dev):
+        """rolling_ball(8) at BATCH_CROSS_B from the pressed state, 10 steps
+        and 2 reads: the batched core (make_rollout_strided with the read),
+        and the lanes stepper (the --lanes rollout); then the VJP of a
+        TactilePush lanes env step into the state, u and Model leaves; each
+        card against CPU (compare_runs: float64 within BATCH_F64_TOL, float32
+        by ROLL_F32_VS_F64)."""
+        from tactilesimulation_tpu_torch.examples import rolling_ball_speed
+        from tactilesimulation_tpu_torch.model import task_scenes
+        from tactilesimulation_tpu_torch.ops import dense_contact
+        from tactilesimulation_tpu_torch.sim import lanes, simulation
+        from tactilesimulation_tpu_torch.sim.types import Model
+        struct, m64 = task_scenes.rolling_ball(resolution=8)
+        B = BATCH_CROSS_B
+        qp, vp = self.batch_pressed(m64.q_init.numpy(), B)
+        core, lane = {}, {}
+        for side, where, dtype in self.card_and_cpu(dev):
+            key = (side, dtype)
+            m = m64.to(where, dtype)
+            sim = simulation.Simulator(struct, m)
+            us = torch.tensor([[0.1, 0.0, 0.2], [0.1, -0.1, 0.2]],
+                              dtype=dtype, device=where)
+            dense_contact.reset_counts()
+            st, qs, _, tc = sim.make_rollout_strided(5, fast_tactile=True)(
+                m, sim.init_state(q=qp, qdot=vp), us)
+            want = 2 if where.type == "cuda" else 0    # the plain path
+            if dense_contact.read_launches != want:
+                raise AssertionError(f"batched core {key}: "
+                                     f"{dense_contact.read_launches} read "
+                                     f"launches for 2 batched reads")
+            core[key] = {k: x.detach().double().cpu() for k, x in
+                         (("q", st.q), ("qdot", st.qdot), ("tactile", tc))}
+            t = lambda a: torch.as_tensor(a, dtype=dtype, device=where)
+            ls = lanes.LaneSimState(
+                q=t(qp.T), qdot=t(vp.T), q_prev=t(qp.T), qdot_prev=t(vp.T),
+                t=torch.zeros(B, dtype=torch.int32, device=where))
+            st, tc = rolling_ball_speed.lane_rollout(struct, B)(m, us, ls)
+            lane[key] = {k: x.detach().double().cpu() for k, x in
+                         (("q", st.q), ("qdot", st.qdot), ("tactile", tc))}
+        if not float(core[("cpu", torch.float64)]["tactile"].abs().max()) > 0:
+            raise AssertionError("no contact in the batch's card-vs-CPU run")
+        print(f"  batched core, rolling_ball(8) B={B}, 10 steps, 2 reads "
+              "(one launch each on the card):")
+        self.compare_runs(core, "batched core", BATCH_F64_TOL)
+        print(f"  lanes build_step (BDF2), rolling_ball(8) B={B}, 10 steps, "
+              "2 plain lane fields:")
+        self.compare_runs(lane, "lanes --lanes", BATCH_F64_TOL)
+
+        # the lanes chord solve's Model-leaf cotangents: TactilePush, one
+        # env step (frame_skip 5, refresh 0, exact), B = 4
+        st_p, mp64 = task_scenes.tactile_push()
+        q0, v0 = resting_contact(mp64.q_init.numpy(), 4, 3, pad_speed=0.01)
+        rng = np.random.RandomState(3)
+        u0 = 0.1 * rng.randn(st_p.ndof_u, 4)
+        cq, cv = rng.randn(*q0.shape), rng.randn(*q0.shape)
+        names = ("body_mass", "body_inertia", "tac_kn", "dof_damping",
+                 "pair_kn", "joint_pos")
+        vjp = {}
+        for side, where, dtype in self.card_and_cpu(dev):
+            key = (side, dtype)
+            t = lambda a: torch.as_tensor(a, dtype=dtype, device=where)
+            mw = mp64.to(where, dtype)
+            m = Model(**{f.name: getattr(mw, f.name).detach().clone()
+                         .requires_grad_(f.name in names)
+                         for f in dataclasses.fields(Model)})
+            qq, vv, uu = (t(a).requires_grad_() for a in (q0, v0, u0))
+            s = lanes.LaneSimState(q=qq, qdot=vv, q_prev=qq.detach(),
+                                   qdot_prev=vv.detach(),
+                                   t=torch.zeros(4, dtype=torch.int32,
+                                                 device=where))
+            out = lanes.build_env_step(st_p, 5)(m, s, uu)
+            g = torch.autograd.grad((out.q, out.qdot),
+                                    [qq, vv, uu] + [getattr(m, f)
+                                                    for f in names],
+                                    (t(cq), t(cv)))
+            vjp[key] = {k: x.detach().double().cpu() for k, x in zip(
+                ("q'", "qdot'", "q_bar", "qdot_bar", "u_bar") + names,
+                (out.q, out.qdot) + tuple(g))}
+        print("  lanes env step VJP, TactilePush B=4, frame_skip 5, into "
+              "the state, u and Model leaves:")
+        self.compare_runs(vjp, "lanes Model-leaf VJP", BATCH_F64_TOL)
+
+    def batch_cli(self, dev):
+        """The RollingBall CLI at 200 x 200 f32 with --batch BATCH_B and with
+        --lanes --batch BATCH_B, its steps cut so that a probe chunk predicts
+        its five runs within BATCH_CLI_BUDGET_S; then a batched step against
+        a single one: ms, steps/s and eager aten ops."""
+        from tactilesimulation_tpu_torch.examples import rolling_ball_speed
+        from tactilesimulation_tpu_torch.model import task_scenes
+        from tactilesimulation_tpu_torch.ops import dense_contact
+        from tactilesimulation_tpu_torch.sim import simulation
+        struct, m64 = task_scenes.rolling_ball(resolution=ROLL_RES)
+        model = m64.to(dev, torch.float32)
+        B = BATCH_B
+        us = torch.as_tensor(rolling_ball_speed.control_chunks(
+            ROLL_STRIDE, struct.ndof_u), dtype=torch.float32, device=dev)
+        sim = simulation.Simulator(struct, model)
+        runs = {
+            "--batch": lambda: sim.make_rollout_strided(
+                ROLL_STRIDE, remat=False, fast_tactile=True)(
+                    model, sim.init_state(batch=B), us),
+            "--lanes": lambda: rolling_ball_speed.lane_rollout(struct, B)(
+                model, us)}
+        for flag, probe in runs.items():
+            probe()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            probe()
+            torch.cuda.synchronize()
+            per_step = (time.perf_counter() - t0) / ROLL_STRIDE
+            chunks = int(BATCH_CLI_BUDGET_S / (5 * per_step * ROLL_STRIDE))
+            steps = ROLL_STRIDE * min(max(chunks, 1),
+                                      ROLL_STEPS // ROLL_STRIDE)
+            print(f"  CLI {flag} --batch {B}: a probe chunk takes "
+                  f"{per_step * 1e3:.1f} ms a batched step: --steps {steps} "
+                  f"(five runs within {BATCH_CLI_BUDGET_S:.0f} s)",
+                  flush=True)
+            argv = ["--batch", str(B), "--steps", str(steps)] + (
+                ["--lanes"] if flag == "--lanes" else [])
+            dense_contact.reset_counts()
+            t0 = time.perf_counter()
+            out, _ = rolling_ball_speed.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            K = steps // ROLL_STRIDE
+            reads = (dense_contact.read_launches, dense_contact.launches)
+            state, tacs = out[0], out[-1]
+            print(f"  CLI {flag} --batch {B} --steps {steps}: five runs in "
+                  f"{wall:.1f} s; read launches {reads[0]}, points entry "
+                  f"{reads[1]}")
+            if flag == "--batch":
+                if reads != (5 * K, 0):
+                    raise AssertionError(f"the batched CLI launched {reads}; "
+                                         f"want one read a chunk ({5 * K})")
+                self.count_launches(K4RB=reads[0])
+                qb = state.q
+                want = ((B, struct.ndof_q), (B, K, struct.ndof_tactile))
+            else:
+                if reads != (0, 0):
+                    raise AssertionError(f"--lanes launched {reads}")
+                qb = state.q.T
+                want = ((struct.ndof_q, B),
+                        (K, struct.ndof_tactile // 3, 3, B))
+            shapes = (tuple(state.q.shape), tuple(tacs.shape))
+            if shapes != want or not bool(torch.isfinite(state.q).all()):
+                raise AssertionError(f"CLI {flag}: shapes {shapes} (want "
+                                     f"{want}) or q not finite")
+            # the B copies start alike and take the same controls
+            apart = float((qb - qb[:1]).abs().max()) / max(
+                float(qb[0].abs().max()), 1e-30)
+            print(f"  CLI {flag}: the {B} copies' final q apart by {apart:.3e}"
+                  f" of scale (bit-equal: {apart == 0})")
+            if not apart <= BATCH_COPIES_TOL:
+                raise AssertionError(f"CLI {flag}: the {B} identical copies "
+                                     "part")
+        # a batched step against a single one, from the start state
+        u = us[0]
+        for b in (1, B):
+            state = sim.init_state(batch=None if b == 1 else b)
+            step = lambda: sim.step(model, state, u)
+            step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 3 * 1e3
+            with AtenCount() as c:
+                step()
+            torch.cuda.synchronize()
+            print(f"  RollingBall {ROLL_RES}x{ROLL_RES} f32, B={b}: "
+                  f"{ms:.1f} ms a step, {b / ms * 1e3:.3f} instance steps/s, "
+                  f"{c.n} eager aten ops a step [{self.card}]")
+        self.device_share(lambda: sim.step(model, sim.init_state(batch=B),
+                                           u), f"one batched step (B={B})")
+
+
 class Child:
     """A group of WORKERS in a process of its own (``chip_smoke.py --child
     OUT PHASE...``), its output kept in a temporary file until ``join``."""
@@ -4115,6 +4500,8 @@ class Child:
         for key, n in res["launches"].items():
             row = smoke.kernel_rows.setdefault(key, {})
             row["launches"] = row.get("launches", 0) + n
+        for key, fields in res["rows"].items():
+            smoke.kernel_rows.setdefault(key, {}).update(fields)
         if rc != 0 and not res["failed"]:
             raise RuntimeError(f"the child process exited with {rc}")
 
@@ -4125,8 +4512,9 @@ class Child:
 
 
 def child_main(dev, out, phases) -> int:
-    """Run ``phases`` and write {"failed": [...], "launches": {key: n}} to
-    ``out``."""
+    """Run ``phases`` and write {"failed": [...], "launches": {key: n},
+    "rows": {key: {field: value}}} (the kernel rows' other fields the
+    phases measured) to ``out``."""
     s = Smoke()
     torch.set_num_threads(WORKER_THREADS)
     s.phase("device", s.device)
@@ -4135,8 +4523,11 @@ def child_main(dev, out, phases) -> int:
             s.phase(name, getattr(s, name), dev)
     launches = {k: r["launches"] for k, r in s.kernel_rows.items()
                 if "launches" in r}
+    rows = {k: {f: x for f, x in r.items() if f != "launches"}
+            for k, r in s.kernel_rows.items()}
     with open(out, "w") as fp:
-        json.dump({"failed": s.failed, "launches": launches}, fp)
+        json.dump({"failed": s.failed, "launches": launches, "rows": rows},
+                  fp)
     return 1 if s.failed else 0
 
 

@@ -25,6 +25,11 @@
 // Read (tactile_read_launch_f32/_f64): the whole (Mtot, 3) sensor-frame
 // field [shear0, shear1, normal] of a scene from (q, v), in one launch:
 // what ops/tactile_query.tactile_field_ref computes with some 700 eager ops.
+// A batch of B states (B, n) of one scene is one launch too: the grid's y
+// dimension is the instance, each instance's blocks run the prologue on its
+// own (q, v) and write its own (Mtot, 3) run of the (B, Mtot, 3) output;
+// every row is computed by one thread in the order of a single read, so a
+// batch of one is the single read, bit for bit.
 //   prologue, every block: warp 0 runs FK of the J joints on Dual<T> with
 //     tangent v (kinematics.cuh, K2's FK), so the joints' frames come with
 //     their JVP: each lane takes joints' local frames (the sines and
@@ -381,6 +386,10 @@ tactile_read_kernel(const int* __restrict__ it, const T* __restrict__ ft,
   const ReadShared<T> sh = carve_read_shared<T>(smem, n, J, P);
   const ReadScene<T> sc = load_read_scene(it, ft, n, J, P, N);
   const int tid = threadIdx.x;
+  const size_t b = blockIdx.y;               // the instance
+  q += b * n;
+  v += b * n;
+  out += b * 3 * static_cast<size_t>(N);
   if (tid < 32) {                            // FK: warp 0
     for (int i = tid; i < n; i += 32) sh.qd[i] = Dual<T>{q[i], v[i]};
     __syncwarp();
@@ -413,8 +422,8 @@ tactile_read_kernel(const int* __restrict__ it, const T* __restrict__ ft,
 
 template <class T>
 int read_launch(const int* it, const T* ft, const T* q, const T* v, int n,
-                int J, int P, int N, T* out, cudaStream_t stream) {
-  if (n < 1 || J < 1 || P < 1 || N < 1)
+                int J, int P, int N, int B, T* out, cudaStream_t stream) {
+  if (n < 1 || J < 1 || P < 1 || N < 1 || B < 1 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0, optin = 0;
   cudaGetDevice(&dev);
@@ -430,8 +439,10 @@ int read_launch(const int* it, const T* ft, const T* q, const T* v, int n,
         static_cast<int>(bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  // the blocks the card holds at once, shared out over the instances
   const int tiles = (N + kBlock - 1) / kBlock;
-  const int grid = min(tiles, kReadBlocksPerSM * (sms > 0 ? sms : 1));
+  const int resident = kReadBlocksPerSM * (sms > 0 ? sms : 1);
+  const dim3 grid(min(tiles, max(1, (resident + B - 1) / B)), B);
   tactile_read_kernel<T><<<grid, kBlock, bytes, stream>>>(it, ft, q, v, n, J,
                                                           P, N, out);
   return static_cast<int>(cudaGetLastError());
@@ -459,21 +470,22 @@ extern "C" int dense_contact_launch_f64(int gtype, const double* x,
                         static_cast<cudaStream_t>(stream));
 }
 
-// Launch the tactile read on `stream` (plan tables `it`, `ft`; n
-// coordinates, J joints, P pairs, N rows); return cudaGetLastError().
+// Launch the tactile read of B states on `stream` (plan tables `it`, `ft`;
+// n coordinates, J joints, P pairs, N rows; q, v (B, n), out (B, N, 3));
+// return cudaGetLastError().
 extern "C" int tactile_read_launch_f32(const int* it, const float* ft,
                                        const float* q, const float* v, int n,
-                                       int J, int P, int N, float* out,
-                                       void* stream) {
-  return read_launch<float>(it, ft, q, v, n, J, P, N, out,
+                                       int J, int P, int N, int B,
+                                       float* out, void* stream) {
+  return read_launch<float>(it, ft, q, v, n, J, P, N, B, out,
                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tactile_read_launch_f64(const int* it, const double* ft,
                                        const double* q, const double* v,
-                                       int n, int J, int P, int N,
+                                       int n, int J, int P, int N, int B,
                                        double* out, void* stream) {
-  return read_launch<double>(it, ft, q, v, n, J, P, N, out,
+  return read_launch<double>(it, ft, q, v, n, J, P, N, B, out,
                              static_cast<cudaStream_t>(stream));
 }
 

@@ -70,6 +70,9 @@ class TactilePushLanes:
         self.dtype = env.dtype
         self.observation_type = observation_type
         self._needs_tactile = env._needs_tactile
+        # one implicit step per lane (the per-step Newton solve), as the
+        # JAX env keeps it beside the fused env step
+        self._step_sim = lanes.build_step(self.struct)
         self.frame_skip = env.frame_skip
         self.ndof_u = env.ndof_u
         self.max_episode_steps = env.max_episode_steps

@@ -8,8 +8,16 @@ ball position with respect to the chunk controls, over ``--grad-steps``
 steps.
 
     python -m tactilesimulation_tpu_torch.examples.rolling_ball_speed \
-        [--steps 350] [--resolution 200] [--f64] [--cpu] \
-        [--grad [--grad-steps 100]]
+        [--steps 350] [--resolution 200] [--f64] [--cpu] [--batch B] \
+        [--lanes] [--viz DIR] [--grad [--grad-steps 100]]
+
+``--batch B`` runs B copies of the scene at once through the batched
+single-instance core (states (B, n); the JAX CLI ``vmap``s its rollout),
+each chunk's field of every copy in one tactile read; FPS counts B x the
+steps. ``--lanes`` runs the B copies through the lane-major stepper
+instead (``sim/lanes.py``: ``lanes.build_step``, BDF2), its plain lane
+field every 5 steps, as the JAX CLI does (no read kernel). ``--viz DIR``
+writes ``depth.png`` and ``force.png`` of the last frame (copy 0).
 
 Runs on the CUDA card (the tactile reads of the forward run go through the
 read kernel; BPTT takes the differentiable field) and raises without one
@@ -17,6 +25,7 @@ unless ``--cpu`` is given (then the plain PyTorch path runs).
 """
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -58,6 +67,33 @@ def bptt_loss(sim, model, state0, remat=True):
     return loss
 
 
+def lane_rollout(struct, B):
+    """(model, us (K, nu), state=None) -> (state, tactiles (K, ntac, 3,
+    B)): B lanes (of the scene's initial state unless ``state`` is given)
+    through ``lanes.build_step``, each control held for STRIDE steps, the
+    plain lane field at every chunk end (the JAX CLI's ``--lanes``)."""
+    from tactilesimulation_tpu_torch.sim import lanes
+    step = lanes.build_step(struct)
+
+    def rollout(model, us, state=None):
+        if state is None:
+            q0 = model.q_init[:, None].expand(struct.ndof_q, B).contiguous()
+            v0 = torch.zeros_like(q0)
+            state = lanes.LaneSimState(
+                q=q0, qdot=v0, q_prev=q0, qdot_prev=v0,
+                t=torch.zeros(B, dtype=torch.int32, device=q0.device))
+        tacs = []
+        for u in us:
+            u_l = u[:, None].expand(struct.ndof_u, B)
+            for _ in range(STRIDE):
+                state = step(model, state, u_l)
+            tacs.append(lanes.tactile_field(struct, model, state.q,
+                                            state.qdot))
+        return state, torch.stack(tacs)
+
+    return rollout
+
+
 def grad_of(loss, us):
     us = us.detach().requires_grad_()
     (g,) = torch.autograd.grad(loss(us), us)
@@ -77,7 +113,18 @@ def main(argv=None):
                          "field + final ball position)/d(controls) over "
                          "--grad-steps steps")
     ap.add_argument("--grad-steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=1,
+                    help="batched copies of the sim (the batched core; "
+                         "with --lanes, the lane count)")
+    ap.add_argument("--lanes", action="store_true",
+                    help="run the batch through the lane-major (batch-last) "
+                         "core (sim/lanes.py) instead of the batched core")
+    ap.add_argument("--viz", type=str, default="",
+                    help="write tactile depth/force images of the final "
+                         "frame into this folder")
     args = ap.parse_args(argv)
+    if args.batch < 1:
+        ap.error("--batch takes 1 or more")
 
     from tactilesimulation_tpu_torch.envs.tactile_push import resolve_device
     from tactilesimulation_tpu_torch.model import task_scenes
@@ -94,13 +141,19 @@ def main(argv=None):
     us_chunks = torch.as_tensor(control_chunks(args.steps, struct.ndof_u),
                                 dtype=dtype, device=device)
     K = us_chunks.shape[0]
-    rollout = sim.make_rollout_strided(STRIDE, remat=False,
-                                       fast_tactile=True)
-    state0 = sim.init_state()
+    B = args.batch
+    state0 = sim.init_state(batch=B if B > 1 else None)
+    if args.lanes:
+        lanes_run = lane_rollout(struct, B)
+        run = lambda us: lanes_run(model, us)
+    else:
+        rollout = sim.make_rollout_strided(STRIDE, remat=False,
+                                           fast_tactile=True)
+        run = lambda us: rollout(model, state0, us)
 
     print("first run...")
     t0 = time.time()
-    out = rollout(model, state0, us_chunks)
+    out = run(us_chunks)
     sync(device)
     print(f"first run: {time.time() - t0:.1f}s")
 
@@ -112,19 +165,34 @@ def main(argv=None):
         us_chunks = us_chunks + torch.as_tensor(
             1e-4 * rng.randn(*us_chunks.shape), dtype=dtype, device=device)
         t0 = time.time()
-        out = rollout(model, state0, us_chunks)
+        out = run(us_chunks)
         sync(device)
         times.append(time.time() - t0)
     t1 = float(np.median(times[1:]))
 
-    nsteps = K * STRIDE
+    nsteps = K * STRIDE * B
     print(f"time elapsed = {t1:.3f} , FPS = {nsteps / t1:.1f}")
-    state, qs, vars_, tactiles = out
-    print("final q:", state.q.cpu().numpy()[..., :6])
-    tac = tactiles[-1].reshape(-1, 3).cpu().numpy()
+    if args.lanes:
+        state, tactiles = out
+        print("final q:", state.q.cpu().numpy()[:6, 0])
+        tac = tactiles[-1][..., 0].cpu().numpy()        # (M, 3) lane 0
+    else:
+        state, qs, vars_, tactiles = out
+        print("final q:", state.q.cpu().numpy()[..., :6])
+        tac = (tactiles[-1] if B == 1 else tactiles[0, -1]).reshape(
+            -1, 3).cpu().numpy()
     print(f"tactile: max |normal| = {np.abs(tac[:, 2]).max():.4g}, "
           f"max |shear| = {np.linalg.norm(tac[:, :2], axis=1).max():.4g}, "
           f"active markers = {(np.abs(tac[:, 2]) > 1e-9).sum()}")
+    if args.viz:
+        from tactilesimulation_tpu_torch.utils import tactile_viz
+        res = args.resolution
+        arr = tac.reshape(res, res, 3)
+        os.makedirs(args.viz, exist_ok=True)
+        for name, img in (("depth", tactile_viz.visualize_depth_image(arr)),
+                          ("force", tactile_viz.visualize_tactile_image(arr))):
+            tactile_viz.save_png(os.path.join(args.viz, f"{name}.png"), img)
+        print(f"tactile depth/force images -> {args.viz}/")
     if not args.grad:
         return out, None
 
@@ -133,7 +201,7 @@ def main(argv=None):
     # perturbed controls
     Kg = max(args.grad_steps // STRIDE, 1)
     us_g = us_chunks[:Kg]
-    loss = bptt_loss(sim, model, state0)
+    loss = bptt_loss(sim, model, sim.init_state())
     t0 = time.time()
     g = grad_of(loss, us_g)
     sync(device)

@@ -17,8 +17,9 @@ first use, ctypes; float32 and float64 instances):
   ``dense_point_contact_ref``;
 - ``tactile_read(plan, q, v)``: the whole sensor-frame tactile field of a
   scene in one launch, from a ``ReadPlan`` (the scene's tables on the
-  card); ``ops/tactile_query.tactile_field`` takes it for CUDA tensors and
-  keeps the plain version for CPU ones.
+  card), for one state (n,) or a batch (B, n) of them (the grid's second
+  dimension); ``ops/tactile_query.tactile_field`` takes it for CUDA
+  tensors and keeps the plain version for CPU ones.
 
 What a kernel does not take (dtype, shape, layout, device) raises, and so
 does a failed build or launch; nothing falls back. ``launches`` counts the
@@ -41,6 +42,7 @@ GTYPES = (GROUND, GEOM_CUBOID, GEOM_CYLINDER, GEOM_SPHERE)
 
 launches = 0
 read_launches = 0
+MAX_READ_BATCH = 65535   # the grid's y dimension
 
 
 def reset_counts():
@@ -73,29 +75,32 @@ def pack_scalars(prim_pose, prim_vel, size, params, ground):
 
 def dense_point_contact_ref(gtype, x, xdot, prim_pose, prim_vel, size,
                             params, ground):
-    """The kernel's arithmetic over (N, 3) rows, column by column in the
-    kernel's order."""
+    """The kernel's arithmetic over (..., N, 3) rows, column by column in
+    the kernel's order. The primitive's pose, velocity, size and parameters
+    are shared or carry the points' leading batch axes."""
     (p, R), (v, w) = prim_pose, prim_vel
     gpos, gn = ground
-    kn, kt, mu, damping = params[0], params[1], params[2], params[3]
-    xs = [x[:, i] for i in range(3)]
-    xd = [xdot[:, i] for i in range(3)]
+    # a component of a primitive quantity, against the points' axis
+    c = lambda a, *i: a[(Ellipsis,) + i + (None,)]
+    kn, kt, mu, damping = (c(params, k) for k in range(4))
+    xs = [x[..., i] for i in range(3)]
+    xd = [xdot[..., i] for i in range(3)]
     gtype = int(gtype)
     if gtype == GROUND:
-        off = torch.sum(gn * gpos)
-        phi = xs[0] * gn[0] + xs[1] * gn[1] + xs[2] * gn[2] - off
-        n = [gn[i].expand(phi.shape) for i in range(3)]
+        off = c(torch.sum(gn * gpos, dim=-1))
+        phi = xs[0] * c(gn, 0) + xs[1] * c(gn, 1) + xs[2] * c(gn, 2) - off
+        n = [c(gn, i).expand(phi.shape) for i in range(3)]
         v_rel = xd
     else:
-        d = [xs[i] - p[i] for i in range(3)]
-        xl = [R[0, i] * d[0] + R[1, i] * d[1] + R[2, i] * d[2]
+        d = [xs[i] - c(p, i) for i in range(3)]
+        xl = [c(R, 0, i) * d[0] + c(R, 1, i) * d[1] + c(R, 2, i) * d[2]
               for i in range(3)]
         if gtype == GEOM_SPHERE:
             r = torch.sqrt(xl[0] ** 2 + xl[1] ** 2 + xl[2] ** 2 + _EPS ** 2)
-            phi = r - size[0]
+            phi = r - c(size, 0)
             gl = [xl[i] / r for i in range(3)]
         elif gtype == GEOM_CUBOID:
-            dd = [torch.abs(xl[i]) - size[i] * 0.5 for i in range(3)]
+            dd = [torch.abs(xl[i]) - c(size, i) * 0.5 for i in range(3)]
             dmax = torch.maximum(torch.maximum(dd[0], dd[1]), dd[2])
             outs = [torch.clamp(dd[i], min=0.0) for i in range(3)]
             out_norm = torch.sqrt(outs[0] ** 2 + outs[1] ** 2 + outs[2] ** 2
@@ -107,8 +112,8 @@ def dense_point_contact_ref(gtype, x, xdot, prim_pose, prim_vel, size,
                   * torch.sign(xl[i]) for i in range(3)]
         elif gtype == GEOM_CYLINDER:
             r2 = torch.sqrt(xl[0] ** 2 + xl[1] ** 2 + _EPS ** 2)
-            dr = r2 - size[0]
-            dz = torch.abs(xl[2]) - size[1]
+            dr = r2 - c(size, 0)
+            dz = torch.abs(xl[2]) - c(size, 1)
             dmax = torch.maximum(dr, dz)
             o_r = torch.clamp(dr, min=0.0)
             o_z = torch.clamp(dz, min=0.0)
@@ -121,11 +126,11 @@ def dense_point_contact_ref(gtype, x, xdot, prim_pose, prim_vel, size,
                   c_z * torch.sign(xl[2])]
         else:
             raise ValueError(f"primitive type {gtype}")
-        n = [R[i, 0] * gl[0] + R[i, 1] * gl[1] + R[i, 2] * gl[2]
+        n = [c(R, i, 0) * gl[0] + c(R, i, 1) * gl[1] + c(R, i, 2) * gl[2]
              for i in range(3)]
-        v_prim = [v[0] + w[1] * d[2] - w[2] * d[1],
-                  v[1] + w[2] * d[0] - w[0] * d[2],
-                  v[2] + w[0] * d[1] - w[1] * d[0]]
+        v_prim = [c(v, 0) + c(w, 1) * d[2] - c(w, 2) * d[1],
+                  c(v, 1) + c(w, 2) * d[0] - c(w, 0) * d[2],
+                  c(v, 2) + c(w, 0) * d[1] - c(w, 1) * d[0]]
         v_rel = [xd[i] - v_prim[i] for i in range(3)]
 
     pen = torch.clamp(-phi, min=0.0)
@@ -137,7 +142,7 @@ def dense_point_contact_ref(gtype, x, xdot, prim_pose, prim_vel, size,
     cap = mu * fn_mag
     scale = cap / torch.maximum(cap, kt * vt_norm + _EPS)
     return torch.stack([fn_mag * n[i] - (kt * scale) * vt[i]
-                        for i in range(3)], dim=1)
+                        for i in range(3)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -226,9 +231,20 @@ class ReadPlan:
     size, the pair's parameter row), and the markers as structure of
     arrays. The kernel sizes its shared memory from the plan's counts.
     ``fresh()`` is False once a model leaf it packed was replaced or
-    changed in place."""
+    changed in place.
+
+    One plan serves a scene: a batched read takes shared scene leaves
+    only, so a Model whose packed leaf carries a batch axis (a leading
+    per-instance axis) raises."""
 
     def __init__(self, struct, model):
+        from ..sim.types import LEAF_NDIM
+        for k in READ_LEAVES:
+            if getattr(model, k).ndim != LEAF_NDIM[k]:
+                raise ValueError(
+                    f"tactile read: the Model leaf {k} has shape "
+                    f"{tuple(getattr(model, k).shape)}; the read takes "
+                    "shared scene leaves only, not per-instance ones")
         n, J, N = struct.ndof_q, struct.njoints, len(struct.tac_joint)
         pairs = struct.tactile_pairs
         P = len(pairs)
@@ -301,9 +317,11 @@ class ReadPlan:
 
 def tactile_read(plan, q, v):
     """(N, 3) sensor-frame [shear0, shear1, normal] field of ``plan``'s
-    scene at (q, v): one launch of the read kernel on the current stream.
-    Raises on what it does not take (q, v off the plan's device or dtype,
-    not contiguous (n,) vectors) without launching."""
+    scene at (q, v), or (B, N, 3) at a batch q, v (B, n): one launch of the
+    read kernel on the current stream either way. Raises on what it does
+    not take (q, v off the plan's device or dtype, not contiguous (n,) or
+    (B, n) arrays of one shape, more than MAX_READ_BATCH states) without
+    launching."""
     global read_launches
     for name, a in (("q", q), ("v", v)):
         if a.device != plan.device:
@@ -312,16 +330,23 @@ def tactile_read(plan, q, v):
         if a.dtype != plan.dtype:
             raise TypeError(f"tactile read: {name} is {a.dtype}, the plan "
                             f"{plan.dtype}")
-        if a.shape != (plan.n,) or not a.is_contiguous():
+        if (a.ndim not in (1, 2) or a.shape[-1] != plan.n
+                or a.shape != q.shape or not a.is_contiguous()):
             raise ValueError(f"tactile read: {name} has shape "
                              f"{tuple(a.shape)}, expected a contiguous "
-                             f"({plan.n},)")
-    out = torch.empty((plan.N, 3), dtype=q.dtype, device=q.device)
+                             f"({plan.n},) or (B, {plan.n}) as q "
+                             f"{tuple(q.shape)}")
+    B = q.shape[0] if q.ndim == 2 else 1
+    if not 1 <= B <= MAX_READ_BATCH:
+        raise ValueError(f"tactile read: a batch of {B} states; the kernel "
+                         f"takes 1 to {MAX_READ_BATCH}")
+    out = torch.empty(q.shape[:-1] + (plan.N, 3), dtype=q.dtype,
+                      device=q.device)
     lib = _library()
     fn = (lib.tactile_read_launch_f32 if q.dtype == torch.float32
           else lib.tactile_read_launch_f64)
     err = fn(plan.ints.data_ptr(), plan.floats.data_ptr(), q.data_ptr(),
-             v.data_ptr(), plan.n, plan.J, plan.P, plan.N, out.data_ptr(),
+             v.data_ptr(), plan.n, plan.J, plan.P, plan.N, B, out.data_ptr(),
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         smem = lib.tactile_read_shared_bytes(plan.n, plan.J, plan.P,
@@ -343,7 +368,7 @@ def _library():
             fn.argtypes = [i, p, p, p, i, p, p]
             fn.restype = ctypes.c_int
         for fn in (lib.tactile_read_launch_f32, lib.tactile_read_launch_f64):
-            fn.argtypes = [p, p, p, p, i, i, i, i, p, p]
+            fn.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
             fn.restype = ctypes.c_int
         lib.dense_contact_scalars.restype = ctypes.c_int
         lib.tactile_read_shared_bytes.argtypes = [i, i, i, i]

@@ -9,16 +9,18 @@ sensor axes. (The JAX query writes each pair's forces into its rows, so
 there the last pair wins where two pairs share rows, as on StableGrasp's
 pads; the port sums, as the step does.)
 
-Routes:
+Routes, for one state (n,) or a batch (B, n):
 - CUDA tensors: ``dense_contact.tactile_read``, the whole read in one
-  launch, from a ``ReadPlan`` made once per (struct, model) and made again
-  when a model leaf it packed changes;
+  launch (a batch too), from a ``ReadPlan`` made once per (struct, model)
+  and made again when a model leaf it packed changes; the plan takes
+  shared scene leaves only;
 - CPU tensors: the plain PyTorch version ``tactile_field_ref``: FK and the
   joints' world twists (``dynamics.twists``, the JVP of FK written as plain
   ops) give the markers' world positions and velocities and the bodies'
   poses and velocities; each tactile pair is one
   ``dense_contact.dense_point_contact_ref``; the forces are summed per row
-  and projected onto the sensor axes. It is also the card's comparison.
+  and projected onto the sensor axes, each instance of a batch on its own.
+  It is also the card's comparison.
 
 Used by ``Simulator.tactile`` (the facade's ``get_tactile_force_vector``),
 the strided rollout's ``fast_tactile`` query and the TactilePush env's
@@ -77,10 +79,10 @@ def read_plan(struct, model):
 
 
 def tactile_field(struct, model, q, v):
-    """(Mtot, 3) sensor-frame [shear0, shear1, normal] marker forces; the
-    query's counterpart of ``dynamics.tactile_field``."""
+    """(..., Mtot, 3) sensor-frame [shear0, shear1, normal] marker forces at
+    q, v (..., n); the query's counterpart of ``dynamics.tactile_field``."""
     if len(struct.tac_joint) == 0:
-        return q.new_zeros((0, 3))
+        return q.new_zeros(q.shape[:-1] + (0, 3))
     if q.is_cuda:
         return dense_contact.tactile_read(read_plan(struct, model), q, v)
     if q.device.type != "cpu":
@@ -89,29 +91,32 @@ def tactile_field(struct, model, q, v):
 
 
 def tactile_field_ref(struct, model, q, v):
-    """The plain PyTorch version of the read, on any device."""
+    """The plain PyTorch version of the read, on any device, at q, v
+    (..., n): each instance on its own, with shared or per-instance Model
+    leaves."""
     ntac = len(struct.tac_joint)
     if ntac == 0:
-        return q.new_zeros((0, 3))
+        return q.new_zeros(q.shape[:-1] + (0, 3))
     tb = kinematics._tables(struct, q)
     with torch.no_grad():
         jp, jq, Om, be = dynamics.twists(struct, model, q, v)
         tj, bj = tb.tac_joint, tb.body_joint
-        tq = jq[tj]
-        x = spatial.transform_apply(jp[tj], tq, model.tac_pos)
-        xd = spatial.cross(Om[tj], x) + be[tj]
-        bp, bquat = spatial.transform_compose(jp[bj], jq[bj], model.body_pos,
-                                              model.body_quat)
-        bw = Om[bj]
-        bv = spatial.cross(bw, bp) + be[bj]
+        tq = jq[..., tj, :]
+        x = spatial.transform_apply(jp[..., tj, :], tq, model.tac_pos)
+        xd = spatial.cross(Om[..., tj, :], x) + be[..., tj, :]
+        bp, bquat = spatial.transform_compose(jp[..., bj, :], jq[..., bj, :],
+                                              model.body_pos, model.body_quat)
+        bw = Om[..., bj, :]
+        bv = spatial.cross(bw, bp) + be[..., bj, :]
         bR = spatial.quat_to_mat(bquat)
         ground = (model.ground_pos, model.ground_normal)
-        tac_force = q.new_zeros((ntac, 3))
+        tac_force = q.new_zeros(x.shape)
         for pair in struct.tactile_pairs:
             sl = slice(pair.point_start, pair.point_start + pair.point_count)
             k = pair.param_index
-            params = torch.stack([model.tac_kn[k], model.tac_kt[k],
-                                  model.tac_mu[k], model.tac_damping[k]])
+            params = torch.stack([model.tac_kn[..., k], model.tac_kt[..., k],
+                                  model.tac_mu[..., k],
+                                  model.tac_damping[..., k]], dim=-1)
             if pair.primitive_body < 0:
                 zero3 = q.new_zeros(3)
                 gtype, pose, vel = GROUND, (zero3, tb.eye3), (zero3, zero3)
@@ -119,13 +124,14 @@ def tactile_field_ref(struct, model, q, v):
             else:
                 b = pair.primitive_body
                 gtype = struct.body_gtype[b]
-                pose, vel, size = (bp[b], bR[b]), (bv[b], bw[b]), \
-                    model.body_size[b]
+                pose, vel = (bp[..., b, :], bR[..., b, :, :]), \
+                    (bv[..., b, :], bw[..., b, :])
+                size = model.body_size[..., b, :]
             # the pairs that share a row add, in pair order (the step's
             # index_add in dynamics.contact_terms)
-            tac_force[sl] += dense_contact.dense_point_contact_ref(
-                gtype, x[sl].contiguous(), xd[sl].contiguous(), pose, vel,
-                size, params, ground)
+            tac_force[..., sl, :] += dense_contact.dense_point_contact_ref(
+                gtype, x[..., sl, :], xd[..., sl, :], pose, vel, size,
+                params, ground)
 
         # project onto the per-marker sensor axes (owner joint frame axes)
         n_w = spatial.quat_rotate(tq, model.tac_normal)

@@ -59,6 +59,20 @@ def combined_params(model) -> torch.Tensor:
     return torch.cat([pair, tac], dim=0)
 
 
+def param_rows(model) -> torch.Tensor:
+    """(..., K+S, 4) rows of [kn, kt, mu, damping], declared pairs then
+    sensors, for the row-major core: leaves shared or with the same leading
+    batch axes (``combined_params`` takes the lanes' trailing lane axis)."""
+    pair = torch.stack(torch.broadcast_tensors(
+        model.pair_kn, model.pair_kt, model.pair_mu, model.pair_damping),
+        dim=-1)
+    tac = torch.stack(torch.broadcast_tensors(
+        model.tac_kn, model.tac_kt, model.tac_mu, model.tac_damping), dim=-1)
+    batch = torch.broadcast_shapes(pair.shape[:-2], tac.shape[:-2])
+    return torch.cat([pair.expand(batch + pair.shape[-2:]),
+                      tac.expand(batch + tac.shape[-2:])], dim=-2)
+
+
 def build_groups(struct) -> Tuple[ContactGroup, ...]:
     """Flatten struct.pairs + struct.tactile_pairs into instance groups,
     bucketed by primitive geometry. Called by ``model/builder.py``."""
@@ -114,8 +128,9 @@ def build_groups(struct) -> Tuple[ContactGroup, ...]:
 
 
 # ---------------------------------------------------------------------------
-# row-major force law of one instance (points (Ni, 3)), as the JAX package's
-# sim/contact.py; the lane-major twins live in sim/lanes.py
+# row-major force law of one instance or a batch (points (..., Ni, 3)), as
+# the JAX package's sim/contact.py; the lane-major twins live in
+# sim/lanes.py
 # ---------------------------------------------------------------------------
 
 def _relu(x):
@@ -163,25 +178,25 @@ def _sdf_sphere(xl, radius):
 
 def group_sdf(group: ContactGroup, model, x, body_p, body_R, prim_body=None):
     """SDF value and world outward normal of the group's primitives at x
-    (Ni, 3). ``prim_body`` is the group's primitive index on x's device
-    (default: made from the host table)."""
+    (..., Ni, 3). ``prim_body`` is the group's primitive index on x's
+    device (default: made from the host table)."""
     if group.gtype == GROUND:
-        n = model.ground_normal.to(x.dtype)
-        phi = torch.sum((x - model.ground_pos) * n, dim=-1)
+        n = model.ground_normal.to(x.dtype)[..., None, :]
+        phi = torch.sum((x - model.ground_pos[..., None, :]) * n, dim=-1)
         return phi, n.expand(x.shape)
     if prim_body is None:
         prim_body = torch.as_tensor(group.prim_body, dtype=torch.int64,
                                     device=x.device)
-    p_b = body_p[prim_body]
-    R_b = body_R[prim_body]
-    size = model.body_size[prim_body]
+    p_b = body_p[..., prim_body, :]
+    R_b = body_R[..., prim_body, :, :]
+    size = model.body_size[..., prim_body, :]
     xl = spatial.mat_tvec(R_b, x - p_b)                       # world -> local
     if group.gtype == GEOM_CUBOID:
         phi, gl = _sdf_box(xl, size / 2.0)
     elif group.gtype == GEOM_CYLINDER:
-        phi, gl = _sdf_cylinder(xl, size[:, 0], size[:, 1])
+        phi, gl = _sdf_cylinder(xl, size[..., 0], size[..., 1])
     elif group.gtype == GEOM_SPHERE:
-        phi, gl = _sdf_sphere(xl, size[:, 0])
+        phi, gl = _sdf_sphere(xl, size[..., 0])
     else:
         raise ValueError(group.gtype)
     return phi, spatial.mat_vec(R_b, gl)
@@ -202,41 +217,44 @@ def penalty_force(phi, n, v_rel, kn, kt, mu, damping):
 
 def group_forces(group: ContactGroup, model, pts, pts_dot, body_p, body_R,
                  body_v, body_w, params, idx=None):
-    """Evaluate one instance group: (f (Ni, 3) world force on the general
-    side, x_eff (Ni, 3) application points, xi_p (Ni, 3) primitive-side
-    local coordinates). ``idx`` holds the group's index tables on the
-    device (``point_idx``, ``general_body``, ``prim_body``, ``param_idx``);
-    default: made from the host tables."""
+    """Evaluate one instance group: (f (..., Ni, 3) world force on the
+    general side, x_eff (..., Ni, 3) application points, xi_p (..., Ni, 3)
+    primitive-side local coordinates). ``params`` are ``param_rows``.
+    ``idx`` holds the group's index tables on the device (``point_idx``,
+    ``general_body``, ``prim_body``, ``param_idx``); default: made from the
+    host tables."""
     if idx is None:
         idx = group_index(group, pts.device)
     gi = idx.general_body
     if group.sphere_general:
-        x = body_p[idx.point_idx]
+        x = body_p[..., idx.point_idx, :]
     else:
-        x = pts[idx.point_idx]
+        x = pts[..., idx.point_idx, :]
     phi, n = group_sdf(group, model, x, body_p, body_R, idx.prim_body)
 
     if group.sphere_general:
-        r = model.body_size[gi, 0]
+        r = model.body_size[..., gi, 0]
         phi = phi - r
-        x_eff = x - r[:, None] * n
-        v_pt = body_v[gi] + spatial.cross(body_w[gi], x_eff - x)
+        x_eff = x - r[..., None] * n
+        v_pt = body_v[..., gi, :] + spatial.cross(body_w[..., gi, :],
+                                                  x_eff - x)
     else:
         x_eff = x
-        v_pt = pts_dot[idx.point_idx]
+        v_pt = pts_dot[..., idx.point_idx, :]
 
     if group.gtype == GROUND:
         v_prim = torch.zeros_like(x_eff)
         xi_p = torch.zeros_like(x_eff)
     else:
         pidx = idx.prim_body
-        p_b, R_b = body_p[pidx], body_R[pidx]
-        v_prim = body_v[pidx] + spatial.cross(body_w[pidx], x_eff - p_b)
+        p_b, R_b = body_p[..., pidx, :], body_R[..., pidx, :, :]
+        v_prim = body_v[..., pidx, :] + spatial.cross(body_w[..., pidx, :],
+                                                      x_eff - p_b)
         xi_p = spatial.mat_tvec(R_b, x_eff - p_b)
 
-    prm = params[idx.param_idx]
-    f = penalty_force(phi, n, v_pt - v_prim,
-                      prm[:, 0], prm[:, 1], prm[:, 2], prm[:, 3])
+    prm = params[..., idx.param_idx, :]
+    f = penalty_force(phi, n, v_pt - v_prim, prm[..., 0], prm[..., 1],
+                      prm[..., 2], prm[..., 3])
     return f, x_eff, xi_p
 
 

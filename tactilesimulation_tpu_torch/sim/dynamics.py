@@ -1,5 +1,7 @@
-"""Articulated dynamics of one instance in momentum form, derived from FK by
-autodiff (row-major: q, v (n,)).
+"""Articulated dynamics of one instance or a batch of them in momentum form,
+derived from FK by autodiff (row-major: q, v (..., n); the single instance
+is the empty batch shape, and Model leaves are shared or carry the same
+leading batch axes).
 
 Port of ``tactilesimulation_tpu/sim/dynamics.py``:
 
@@ -16,6 +18,13 @@ Jacobian and the adjoint can pull back through them.
 Generalized contact forces: Q = (dX/dq)^T f for the application points X(q),
 one reverse pass through FK (the JAX package transposes ``jax.linearize``;
 here ``torch.autograd.grad`` of the FK outputs with the force cotangents).
+
+Over a batch, every scalar that an inner ``autograd.grad`` differentiates
+(the Lagrangian, the kinetic energy, the contact pullback's inner product)
+is summed over the instances first. That is exact: the instances share no
+variable, so the gradient of the sum with respect to one instance's q or
+v is that instance's own gradient. No other reduction runs over the batch
+axes.
 """
 
 from __future__ import annotations
@@ -169,65 +178,71 @@ def _dof_tables(struct: Structure, like: torch.Tensor):
 
 
 def _jl_cols(r, eye3):
-    """Columns of the SO(3) left Jacobian at rotvecs r (k, 3): (k, col, 3)."""
-    th2 = torch.sum(r * r, dim=-1)[:, None, None]
+    """Columns of the SO(3) left Jacobian at rotvecs r (..., k, 3):
+    (..., k, col, 3)."""
+    th2 = torch.sum(r * r, dim=-1)[..., None, None]
     th = torch.sqrt(th2 + 1e-12)
     small = th2 < 1e-8
     safe2 = torch.where(small, torch.ones_like(th2), th2)
     a = torch.where(small, 0.5 - th2 / 24.0, (1.0 - torch.cos(th)) / safe2)
     b = torch.where(small, 1.0 / 6.0 - th2 / 120.0,
                     (th - torch.sin(th)) / (safe2 * th))
-    e = eye3[None].expand(r.shape[0], 3, 3)
-    rxe = spatial.cross(r[:, None, :], e)
-    return e + a * rxe + b * spatial.cross(r[:, None, :], rxe)
+    e = eye3.expand(r.shape[:-1] + (3, 3))
+    rxe = spatial.cross(r[..., None, :], e)
+    return e + a * rxe + b * spatial.cross(r[..., None, :], rxe)
 
 
 def dof_frames(struct: Structure, model: Model, q):
-    """Joint frames and per-dof world axes: (jp (J, 3), jq (J, 4), w (n, 3),
-    c (n, 3) a point on a rotational dof's axis, rot_mask (n,) 1.0 on
-    rotational dofs); row-major and batched over dofs (the lane-major
-    ``lanes.dof_frames`` loops over joints)."""
+    """Joint frames and per-dof world axes: (jp (..., J, 3), jq (..., J, 4),
+    w (..., n, 3), c (..., n, 3) a point on a rotational dof's axis,
+    rot_mask (n,) 1.0 on rotational dofs); row-major and batched over dofs
+    (the lane-major ``lanes.dof_frames`` loops over joints)."""
     t = _dof_tables(struct, q)
     jp, jq = kinematics.fk_joints(struct, model, q)
+    batch = jq.shape[:-2]
     # frame of each joint before its own variable transform
-    pq = torch.cat([jq, kinematics._tables(struct, q).ident[None]])[t.parent]
+    ident = kinematics._tables(struct, q).ident.expand(batch + (1, 4))
+    pq = torch.cat([jq, ident], dim=-2)[..., t.parent, :]
     Fq = spatial.quat_mul(pq, model.joint_quat)
-    local = t.trans_local + t.rev * model.joint_axis0[t.dof_joint]
+    local = t.trans_local + t.rev * model.joint_axis0[..., t.dof_joint, :]
+    if t.exp_dofs is not None or t.eul_dofs is not None:
+        local = local.expand(batch + local.shape[-2:])
     if t.exp_dofs is not None:
-        cols = _jl_cols(q[t.exp_dofs], t.eye3)
-        local = local.index_add(0, t.exp_dofs.reshape(-1),
-                                cols.reshape(-1, 3))
+        cols = _jl_cols(q[..., t.exp_dofs], t.eye3)
+        local = local.index_add(-2, t.exp_dofs.reshape(-1),
+                                cols.reshape(batch + (-1, 3)))
     if t.eul_dofs is not None:
         # R = Rx(ex) Ry(ey) Rz(ez): generator axes x, Rx y, Rx Ry z
-        ex, ey = q[t.eul_dofs[:, 0]], q[t.eul_dofs[:, 1]]
+        ex, ey = q[..., t.eul_dofs[:, 0]], q[..., t.eul_dofs[:, 1]]
         cx, sx, cy, sy = torch.cos(ex), torch.sin(ex), torch.cos(ey), \
             torch.sin(ey)
         one, zero = torch.ones_like(ex), torch.zeros_like(ex)
         axes = torch.stack([torch.stack([one, zero, zero], dim=-1),
                             torch.stack([zero, cx, sx], dim=-1),
                             torch.stack([sy, -sx * cy, cx * cy], dim=-1)],
-                           dim=1)
-        local = local.index_add(0, t.eul_dofs.reshape(-1),
-                                axes.reshape(-1, 3))
-    w = spatial.quat_rotate(Fq[t.dof_joint], local)
-    return jp, jq, w, jp[t.dof_joint], t.rot_mask
+                           dim=-2)
+        local = local.index_add(-2, t.eul_dofs.reshape(-1),
+                                axes.reshape(batch + (-1, 3)))
+    w = spatial.quat_rotate(Fq[..., t.dof_joint, :], local)
+    return jp, jq, w, jp[..., t.dof_joint, :], t.rot_mask
 
 
 def joint_twists(struct: Structure, w, c, rot_mask, v):
-    """World twist of every joint frame, (Omega (J, 3), beta (J, 3)): a
-    point X rigid with joint j moves at Omega_j x X + beta_j."""
+    """World twist of every joint frame, (Omega (..., J, 3), beta
+    (..., J, 3)): a point X rigid with joint j moves at
+    Omega_j x X + beta_j."""
     anc = _dof_tables(struct, w).anc                      # (n, J, 1)
     rm = rot_mask[:, None]
-    wv = w * v[:, None]
+    wv = w * v[..., None]
     omega_terms = rm * wv
-    beta_terms = (1.0 - rm) * wv - rm * (spatial.cross(w, c) * v[:, None])
-    return (torch.sum(anc * omega_terms[:, None, :], dim=0),
-            torch.sum(anc * beta_terms[:, None, :], dim=0))
+    beta_terms = (1.0 - rm) * wv - rm * (spatial.cross(w, c) * v[..., None])
+    return (torch.sum(anc * omega_terms[..., None, :], dim=-3),
+            torch.sum(anc * beta_terms[..., None, :], dim=-3))
 
 
 def twists(struct: Structure, model: Model, q, v):
-    """Joint frames and world twists: (jp (J, 3), jq (J, 4), Omega (J, 3),
-    beta (J, 3)).
+    """Joint frames and world twists: (jp (..., J, 3), jq (..., J, 4),
+    Omega (..., J, 3), beta (..., J, 3)).
 
     The exact JVP of FK along v, from the analytic per-dof world axes,
     written as plain reverse-differentiable ops (the JAX package takes
@@ -243,13 +258,14 @@ def body_velocities(struct: Structure, model: Model, q, v):
     (p, quat, pdot, w)."""
     jp, jq, Om, be = twists(struct, model, q, v)
     bj = kinematics._tables(struct, q).body_joint
-    p, quat = spatial.transform_compose(jp[bj], jq[bj], model.body_pos,
-                                        model.body_quat)
-    w = Om[bj]
-    return p, quat, spatial.cross(w, p) + be[bj], w
+    p, quat = spatial.transform_compose(jp[..., bj, :], jq[..., bj, :],
+                                        model.body_pos, model.body_quat)
+    w = Om[..., bj, :]
+    return p, quat, spatial.cross(w, p) + be[..., bj, :], w
 
 
 def _kinetic(model, quat, pd, w):
+    """T summed over the instances (see the module's docstring)."""
     w_local = spatial.mat_tvec(spatial.quat_to_mat(quat), w)
     return (0.5 * torch.sum(model.body_mass * torch.sum(pd * pd, dim=-1))
             + 0.5 * torch.sum(model.body_inertia * w_local * w_local))
@@ -261,14 +277,16 @@ def kinetic_energy(struct: Structure, model: Model, q, v):
 
 
 def lagrangian(struct: Structure, model: Model, q, v):
-    """L = T - V; body positions are shared between T's FK and V."""
+    """L = T - V, summed over the instances; body positions are shared
+    between T's FK and V."""
     p, quat, pd, w = body_velocities(struct, model, q, v)
     V = -torch.sum(model.body_mass * torch.sum(p * model.gravity, dim=-1))
     return _kinetic(model, quat, pd, w) - V
 
 
 def el_terms(struct: Structure, model: Model, q, v):
-    """(dL/dq, p = dL/dv) in one reverse pass."""
+    """(dL/dq, p = dL/dv) in one reverse pass; over a batch, the gradients
+    of the instances' summed Lagrangian, each instance's own."""
     create = outer_graph(model, q, v)
     with inner_graph(keep=create):
         q_, v_ = _grad_input(q), _grad_input(v)
@@ -310,9 +328,10 @@ def motor_forces(struct: Structure, model: Model, q, v, u):
     dof = kinematics._tables(struct, q).motor_dof
     uc = torch.minimum(torch.maximum(u, model.motor_ctrl_lo),
                        model.motor_ctrl_hi)
-    pd = model.motor_kp * (uc - q[dof]) - model.motor_kd * v[dof]
+    pd = model.motor_kp * (uc - q[..., dof]) - model.motor_kd * v[..., dof]
     tau = model.motor_pos_mask * pd + (1.0 - model.motor_pos_mask) * uc
-    return torch.zeros_like(q).index_add(0, dof, tau)
+    return torch.zeros_like(q).index_add(-1, dof, tau.expand(
+        q.shape[:-1] + tau.shape[-1:]))
 
 
 # ---------------------------------------------------------------------------
@@ -344,8 +363,8 @@ def _group_tables(struct: Structure, device):
 def contact_terms(struct: Structure, model: Model, q, v, tactile=True):
     """All contact and tactile instance forces.
 
-    Returns (Q (n,) generalized contact force, tac_force (Mtot, 3) world
-    marker forces; an empty (0, 3) when ``tactile`` is False).
+    Returns (Q (..., n) generalized contact force, tac_force (..., Mtot, 3)
+    world marker forces; an empty (..., 0, 3) when ``tactile`` is False).
 
     The joints' twists give point and body velocities; the forces
     act at material points (on the general side at the contact points, for
@@ -354,8 +373,10 @@ def contact_terms(struct: Structure, model: Model, q, v, tactile=True):
     detached), and Q is the pullback of those forces through FK."""
     groups = struct.contact_groups
     ntac = len(struct.tac_joint)
+    batch = q.shape[:-1]
     if not groups:
-        return torch.zeros_like(q), q.new_zeros((ntac if tactile else 0, 3))
+        return torch.zeros_like(q), q.new_zeros(
+            batch + (ntac if tactile else 0, 3))
     create = outer_graph(model, q, v)
     tabs = _group_tables(struct, q.device)
     tb = kinematics._tables(struct, q)
@@ -363,17 +384,18 @@ def contact_terms(struct: Structure, model: Model, q, v, tactile=True):
         q_ = _grad_input(q)
         jp, jq, Om, be = twists(struct, model, q_, v)
         bj = tb.body_joint
-        bp, bquat = spatial.transform_compose(jp[bj], jq[bj], model.body_pos,
-                                              model.body_quat)
-        bw = Om[bj]
-        bv = spatial.cross(bw, bp) + be[bj]
+        bp, bquat = spatial.transform_compose(jp[..., bj, :], jq[..., bj, :],
+                                              model.body_pos, model.body_quat)
+        bw = Om[..., bj, :]
+        bv = spatial.cross(bw, bp) + be[..., bj, :]
         pts = torch.cat([
             kinematics._points_world(jp, jq, model.cp_pos, tb.cp_joint),
-            kinematics._points_world(jp, jq, model.tac_pos, tb.tac_joint)])
+            kinematics._points_world(jp, jq, model.tac_pos, tb.tac_joint)],
+            dim=-2)
         pj = tb.pts_joint
-        pts_dot = spatial.cross(Om[pj], pts) + be[pj]
+        pts_dot = spatial.cross(Om[..., pj, :], pts) + be[..., pj, :]
         bR = spatial.quat_to_mat(bquat)
-        params = contact.combined_params(model)
+        params = contact.param_rows(model)
         per_group = [(g, idx) + contact.group_forces(
             g, model, pts, pts_dot, bp, bR, bv, bw, params, idx)
             for g, idx in zip(groups, tabs)]
@@ -384,31 +406,31 @@ def contact_terms(struct: Structure, model: Model, q, v, tactile=True):
         for g, idx, f, x_eff, xi_p in per_group:
             if g.sphere_general:
                 gi = idx.point_idx
-                qg = bquat[gi]
+                qg = bquat[..., gi, :]
                 xi_g = spatial.quat_rotate(spatial.quat_conj(qg),
-                                           x_eff - bp[gi]).detach()
-                outs.append(bp[gi] + spatial.quat_rotate(qg, xi_g))
+                                           x_eff - bp[..., gi, :]).detach()
+                outs.append(bp[..., gi, :] + spatial.quat_rotate(qg, xi_g))
                 cots.append(f)
             else:
-                pts_bar = pts_bar.index_add(0, idx.point_idx, f)
+                pts_bar = pts_bar.index_add(-2, idx.point_idx, f)
             if g.gtype != contact.GROUND:
                 pi = idx.prim_body
-                outs.append(bp[pi] + spatial.quat_rotate(bquat[pi],
-                                                         xi_p.detach()))
+                outs.append(bp[..., pi, :] + spatial.quat_rotate(
+                    bquat[..., pi, :], xi_p.detach()))
                 cots.append(-f)
-        if pts.shape[0]:
+        if pts.shape[-2]:
             outs.append(pts)
             cots.append(pts_bar)
         (Q,) = torch.autograd.grad(outs, q_, cots, create_graph=create)
 
         if tactile:
-            tac = q.new_zeros((ntac + 1, 3))
+            tac = q.new_zeros(batch + (ntac + 1, 3))
             for g, idx, f, _, _ in per_group:
-                tac = tac.index_add(0, idx.rows,
+                tac = tac.index_add(-2, idx.rows,
                                     torch.where(idx.is_tac, f, 0.0))
-            tac = tac[1:]
+            tac = tac[..., 1:, :]
         else:
-            tac = q.new_zeros((0, 3))
+            tac = q.new_zeros(batch + (0, 3))
     if not create:
         tac = tac.detach()
     return Q, tac
@@ -425,7 +447,7 @@ def applied_forces(struct: Structure, model: Model, q, v, u, tactile=True):
 
 
 def tactile_field(struct: Structure, model: Model, q, v):
-    """Dense tactile output in the sensor frame: (Mtot, 3) rows of
+    """Dense tactile output in the sensor frame: (..., Mtot, 3) rows of
     [shear_axis0, shear_axis1, normal]."""
     _, tac_force = contact_terms(struct, model, q, v)
     return tactile_field_from_forces(struct, model, q, tac_force)

@@ -1,5 +1,5 @@
-"""Implicit BDF1/BDF2 stepping of one instance, with the implicit-function
-adjoint of the solve.
+"""Implicit BDF1/BDF2 stepping of one instance or a batch of them, with the
+implicit-function adjoint of the solve.
 
 Port of ``tactilesimulation_tpu/sim/integrators.py``. One step solves the
 momentum-form residual
@@ -14,6 +14,14 @@ iterate (by residual norm) is returned. Coefficients:
     BDF1: gamma = h,    q_base = q,            p_base = p(q, v)
     BDF2: gamma = 2h/3, q_base = (4q - q_)/3,  p_base = (4 p(q,v) - p(q_,v_))/3
           (the first step falls back to BDF1: no history yet)
+
+Over a batch (states (B, n), the step counter (B,); Model leaves shared or
+with a leading (B, ...) axis, as ``vmap`` with ``in_axes`` over Model
+leaves does in JAX) every instance has its own chord factor, its own
+ridge, stop rule and best iterate, and its own first-step fallback; the
+single instance is the empty batch shape. No reduction runs over the batch
+axis but the sums an inner ``autograd.grad`` differentiates
+(``dynamics``), which are exact.
 
 The step never waits for the device: the sweep count is fixed, a converged
 iterate is frozen by ``torch.where``, BDF2's first-step fallback is a
@@ -67,11 +75,13 @@ def ridge_eps(dtype) -> float:
 
 
 def _ridged(J):
-    """J (n, n) + scale-aware ridge (lane-major twin: ``lanes._ridge``)."""
-    n = J.shape[0]
-    diag_mag = torch.mean(torch.abs(torch.diagonal(J)))
+    """J (..., n, n) + scale-aware ridge, each instance by its own mean
+    diagonal (lane-major twin: ``lanes._ridge``)."""
+    n = J.shape[-1]
+    diag_mag = torch.mean(torch.abs(torch.diagonal(J, dim1=-2, dim2=-1)),
+                          dim=-1)
     eye = torch.eye(n, dtype=J.dtype, device=J.device)
-    return J + (ridge_eps(J.dtype) * (diag_mag + 1.0)) * eye
+    return J + (ridge_eps(J.dtype) * (diag_mag + 1.0))[..., None, None] * eye
 
 
 def make_residual(struct: Structure, points_major: bool = False):
@@ -100,18 +110,22 @@ def _detach(inputs: StepInputs) -> StepInputs:
 
 
 def _jacobian(r, v, retain_graph=False):
-    """J = dr/dv (n, n) from one residual graph: the n pullbacks as one
+    """J = dr/dv (..., n, n) from one residual graph: the n pullbacks as one
     batched backward pass (vmap over the cotangents); row i is the pullback
-    of e_i."""
-    basis = torch.eye(v.shape[0], dtype=v.dtype, device=v.device)
-    (J,) = torch.autograd.grad(r, v, basis, retain_graph=retain_graph,
+    of e_i in every instance at once."""
+    n = v.shape[-1]
+    basis = torch.eye(n, dtype=v.dtype, device=v.device)
+    basis = basis.reshape((n,) + (1,) * (v.ndim - 1) + (n,))
+    (J,) = torch.autograd.grad(r, v, basis.expand((n,) + v.shape),
+                               retain_graph=retain_graph,
                                is_grads_batched=True)
-    return J
+    return J.movedim(0, -2)
 
 
 def chord_factor(residual_fn, inputs: StepInputs, v_guess):
     """(LU, pivots, r0): the pivoted LU of the ridged chord Jacobian
-    J = dr/dv at the warm start, and the residual there; all detached."""
+    J = dr/dv at the warm start (one per instance), and the residual there;
+    all detached."""
     inputs = _detach(inputs)
     with dynamics.inner_graph():
         v = v_guess.detach().requires_grad_()
@@ -124,23 +138,24 @@ def chord_factor(residual_fn, inputs: StepInputs, v_guess):
 def chord_sweeps(residual_fn, max_iter, tol, inputs: StepInputs, v_guess,
                  factor):
     """``max_iter`` chord sweeps from ``v_guess`` with the factor of
-    ``chord_factor``; a converged iterate is frozen, the best is returned.
+    ``chord_factor``; a converged iterate is frozen, the best is returned,
+    each per instance (norms over the last axis, masks broadcast over it).
     The tolerance is residual-scale aware: max(tol, rel |r0|)."""
     lu, piv, r0 = factor
     rel = 1e-4 if v_guess.dtype == torch.float32 else 1e-7
     inputs = _detach(inputs)
     with torch.no_grad():
-        rn0 = torch.linalg.norm(r0)
+        rn0 = torch.linalg.norm(r0, dim=-1)
         tol_eff = torch.clamp(rel * rn0, min=tol)
         v, r, rn = v_guess.detach(), r0, rn0
         v_best, rn_best = v, rn0
         for _ in range(max_iter):
-            dv = torch.linalg.lu_solve(lu, piv, r[:, None])[:, 0]
-            v = torch.where(rn <= tol_eff, v, v - dv)
+            dv = torch.linalg.lu_solve(lu, piv, r[..., None])[..., 0]
+            v = torch.where((rn <= tol_eff)[..., None], v, v - dv)
             r = residual_fn(v, inputs)
-            rn = torch.linalg.norm(r)
+            rn = torch.linalg.norm(r, dim=-1)
             better = rn < rn_best
-            v_best = torch.where(better, v, v_best)
+            v_best = torch.where(better[..., None], v, v_best)
             rn_best = torch.where(better, rn, rn_best)
     return v_best
 
@@ -179,7 +194,10 @@ def shared_adjoint():
 class _NewtonSolve(torch.autograd.Function):
     """The chord solve with the implicit-function adjoint at v*. Its tensor
     arguments are u, q_base, p_base, gamma, v_guess and the Model's leaves
-    in field order (a Function takes tensors, not the dataclass)."""
+    in field order (a Function takes tensors, not the dataclass). Over a
+    batch the backward solves each instance's transposed system; the one
+    pullback of -lambda gives a shared leaf the sum of the instances'
+    cotangents and a batched leaf its own."""
 
     @staticmethod
     def forward(ctx, residual_fn, max_iter, tol, u, q_base, p_base, gamma,
@@ -213,8 +231,8 @@ class _NewtonSolve(torch.autograd.Function):
                 if _SHARED[0]:
                     ctx.adjoint = kept
             r, wrt, lu, piv = kept
-            lam = torch.linalg.lu_solve(lu, piv, g[:, None],
-                                        adjoint=True)[:, 0]
+            lam = torch.linalg.lu_solve(lu, piv, g[..., None],
+                                        adjoint=True)[..., 0]
             got = iter(torch.autograd.grad(r, wrt, -lam,
                                            retain_graph=bool(_SHARED[0]),
                                            materialize_grads=True)
@@ -238,12 +256,16 @@ def newton_solve(residual_fn, max_iter, tol, inputs: StepInputs, v_guess):
 
 def step_inputs(struct: Structure, model: Model, state: SimState, u):
     """StepInputs of one BDF1/BDF2 step from ``state``: BDF2 falls back to
-    BDF1 on the first step (a ``torch.where`` on the counter, no sync)."""
+    BDF1 on the first step (a ``torch.where`` on the counter, no sync),
+    per instance over a batch. gamma is () for one instance and (B, 1) over
+    a batch (or per-instance h)."""
     h = model.h
+    if state.t.ndim or h.ndim:
+        h = h[..., None]
     u = torch.as_tensor(u, dtype=state.q.dtype, device=state.q.device)
     p_now = dynamics.momentum(struct, model, state.q, state.qdot)
     if struct.integrator.upper() == "BDF2":
-        first = state.t == 0
+        first = (state.t == 0)[..., None] if state.t.ndim else state.t == 0
         p_prev = dynamics.momentum(struct, model, state.q_prev,
                                    state.qdot_prev)
         gamma = torch.where(first, h, 2.0 * h / 3.0)

@@ -1,5 +1,7 @@
-"""Reduced-coordinate forward kinematics of one instance (row-major: q (n,),
-frames (J, 3) / (J, 4)), and the host-side FK tables the builder compiles.
+"""Reduced-coordinate forward kinematics of one instance or a batch of them
+(row-major: q (..., n), frames (..., J, 3) / (..., J, 4); the single
+instance is the empty batch shape), and the host-side FK tables the builder
+compiles. Model leaves are shared or carry the same leading batch axes.
 
 Port of ``tactilesimulation_tpu/sim/kinematics.py``. Child joint frames are
 given in the parent joint's frame; free joints order their dofs translation
@@ -109,7 +111,6 @@ def _tables(struct, like: torch.Tensor):
     t.levels = [(li(idx), li(par), bool(root))
                 for idx, par, root in tb["levels"]]
     t.ident = fl([1.0, 0.0, 0.0, 0.0])
-    t.zero1 = fl([0.0])
     t.eye3 = fl(np.eye(3))
     t.body_joint = li(struct.body_joint)
     t.cp_joint = li(struct.cp_joint)
@@ -122,17 +123,17 @@ def _tables(struct, like: torch.Tensor):
 
 
 def fk_joints(struct, model, q):
-    """World pose of every joint frame: (p (J, 3), quat (J, 4)).
+    """World pose of every joint frame: (p (..., J, 3), quat (..., J, 4)).
 
     Batched local transforms over all joints, then depth-level chain
     composition: joints at one tree depth compose from their parents in one
     batched quaternion op (``build_fk_tables``)."""
     tb = _tables(struct, q)
-    q_pad = torch.cat([q, tb.zero1])
-    qt = q_pad[tb.trans_idx]                                   # (J, 3)
-    trans_local = torch.sum(tb.basis * qt[:, None, :], dim=-1)
-    qr = q_pad[tb.rot_idx]                                     # (J, 3)
-    aa = spatial.axis_angle_quat(model.joint_axis0, qr[:, 0])
+    q_pad = torch.cat([q, q.new_zeros(q.shape[:-1] + (1,))], dim=-1)
+    qt = q_pad[..., tb.trans_idx]                              # (..., J, 3)
+    trans_local = torch.sum(tb.basis * qt[..., None, :], dim=-1)
+    qr = q_pad[..., tb.rot_idx]                                # (..., J, 3)
+    aa = spatial.axis_angle_quat(model.joint_axis0, qr[..., 0])
     expq = spatial.rotvec_to_quat(qr)
     eulq = spatial.euler_xyz_to_quat(qr)
     m_id = 1.0 - tb.m_rev - tb.m_exp - tb.m_eul
@@ -143,40 +144,41 @@ def fk_joints(struct, model, q):
                                                   trans_local)
     q_loc = spatial.quat_mul(model.joint_quat, quat_local)
 
-    J = struct.njoints
-    wp = q.new_zeros((J, 3))
-    wq = tb.ident.repeat(J, 1)
+    wp = p_loc.new_zeros(p_loc.shape)
+    wq = tb.ident.expand(q_loc.shape).contiguous()
     for idx, par, is_root in tb.levels:
         if is_root:
-            wp = wp.index_copy(0, idx, p_loc[idx])
-            wq = wq.index_copy(0, idx, q_loc[idx])
+            wp = wp.index_copy(-2, idx, p_loc[..., idx, :])
+            wq = wq.index_copy(-2, idx, q_loc[..., idx, :])
         else:
-            bp, bq = wp[par], wq[par]
-            wp = wp.index_copy(0, idx, bp + spatial.quat_rotate(bq,
-                                                                p_loc[idx]))
-            wq = wq.index_copy(0, idx, spatial.quat_mul(bq, q_loc[idx]))
+            bp, bq = wp[..., par, :], wq[..., par, :]
+            wp = wp.index_copy(-2, idx, bp + spatial.quat_rotate(
+                bq, p_loc[..., idx, :]))
+            wq = wq.index_copy(-2, idx, spatial.quat_mul(
+                bq, q_loc[..., idx, :]))
     return wp, wq
 
 
 def fk_bodies(struct, model, q):
-    """World pose of every body (COM) frame: (p (NB, 3), quat (NB, 4))."""
+    """World pose of every body (COM) frame: (p (..., NB, 3), quat
+    (..., NB, 4))."""
     jp, jq = fk_joints(struct, model, q)
     bj = _tables(struct, q).body_joint
-    return spatial.transform_compose(jp[bj], jq[bj], model.body_pos,
-                                     model.body_quat)
+    return spatial.transform_compose(jp[..., bj, :], jq[..., bj, :],
+                                     model.body_pos, model.body_quat)
 
 
 def _points_world(jp, jq, points, idx):
     if len(idx) == 0:
-        return jp.new_zeros((0, 3))
-    return spatial.transform_apply(jp[idx], jq[idx], points)
+        return jp.new_zeros(jp.shape[:-2] + (0, 3))
+    return spatial.transform_apply(jp[..., idx, :], jq[..., idx, :], points)
 
 
 def points_world(struct, model, q, points, joint_index):
     """Joint-frame point set to world; ``joint_index`` is a host sequence of
     owning joints or its index tensor on q's device."""
     if len(joint_index) == 0:
-        return q.new_zeros((0, 3))
+        return q.new_zeros(q.shape[:-1] + (0, 3))
     jp, jq = fk_joints(struct, model, q)
     if not isinstance(joint_index, torch.Tensor):
         joint_index = torch.as_tensor(np.asarray(joint_index, np.int64),
@@ -195,12 +197,13 @@ def tactile_points_world(struct, model, q):
 
 
 def tactile_frames_world(struct, model, q):
-    """Per-marker sensor axes in world: (normal, axis0, axis1), each (M, 3)."""
+    """Per-marker sensor axes in world: (normal, axis0, axis1), each
+    (..., M, 3)."""
     if len(struct.tac_joint) == 0:
-        z = q.new_zeros((0, 3))
+        z = q.new_zeros(q.shape[:-1] + (0, 3))
         return z, z, z
     _, jq = fk_joints(struct, model, q)
-    qw = jq[_tables(struct, q).tac_joint]
+    qw = jq[..., _tables(struct, q).tac_joint, :]
     return (spatial.quat_rotate(qw, model.tac_normal),
             spatial.quat_rotate(qw, model.tac_axis0),
             spatial.quat_rotate(qw, model.tac_axis1))
@@ -213,17 +216,18 @@ def fk_all(struct, model, q):
     tb = _tables(struct, q)
     jp, jq = fk_joints(struct, model, q)
     bj = tb.body_joint
-    bp, bquat = spatial.transform_compose(jp[bj], jq[bj], model.body_pos,
-                                          model.body_quat)
+    bp, bquat = spatial.transform_compose(jp[..., bj, :], jq[..., bj, :],
+                                          model.body_pos, model.body_quat)
     pts = torch.cat([_points_world(jp, jq, model.cp_pos, tb.cp_joint),
-                     _points_world(jp, jq, model.tac_pos, tb.tac_joint)])
+                     _points_world(jp, jq, model.tac_pos, tb.tac_joint)],
+                    dim=-2)
     return bp, bquat, pts
 
 
 def ee_positions(struct, model, q):
-    """Stacked world positions of the end-effector markers, (3 NE,): the
+    """Stacked world positions of the end-effector markers, (..., 3 NE): the
     reference's ``get_variables()``."""
     if len(struct.ee_joint) == 0:
-        return q.new_zeros((0,))
+        return q.new_zeros(q.shape[:-1] + (0,))
     return points_world(struct, model, q, model.ee_pos,
-                        _tables(struct, q).ee_joint).reshape(-1)
+                        _tables(struct, q).ee_joint).flatten(-2)

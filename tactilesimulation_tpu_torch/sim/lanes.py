@@ -1,6 +1,8 @@
 """Lane-major (batch-last) physics core: the batched hot path, in PyTorch.
 
-Port of ``tactilesimulation_tpu/sim/lanes.py`` (the BDF1 env step).
+Port of ``tactilesimulation_tpu/sim/lanes.py``: the BDF1/BDF2 env step
+with an amortized chord factor (``build_env_step``) and the per-substep
+Newton step (``build_step``).
 Quaternions are ``(4, ..., B)``, vectors ``(3, ..., B)``, generalized
 coordinates ``(n, B)``: the batch is the last (contiguous) axis, so on the
 card consecutive threads of every elementwise op touch consecutive lanes.
@@ -19,9 +21,9 @@ Differentiation:
   adjoint in one of the JAX package's ``bwd_mode``s (``exact``: J^T
   rebuilt at v* from n pullbacks of one residual graph, a ridged LU,
   lambda = J^{-T} g; ``fwdfac``, ``stale``, ``refine<k>``: see
-  ``chord_bwd``), and -lambda pulled back into (u, q_base, p_base).
-  Model leaves get no cotangent (the model is a constant of the port's
-  training path).
+  ``chord_bwd``), and -lambda pulled back into (u, q_base, p_base, gamma)
+  and every Model leaf that requires grad: a shared leaf gets the sum of
+  the lanes' cotangents, a leaf with a trailing lane axis its own per lane.
 - Every graph that is built and differentiated on the spot (``el_terms``,
   ``momentum``, the chord factor's and the adjoints' pullbacks) is built
   under ``dynamics.inner_graph``, outside a caller's saved-tensor hooks,
@@ -42,7 +44,7 @@ import numpy as np
 import torch
 
 from . import contact, dynamics
-from .integrators import ridge_eps
+from .integrators import _LEAVES, _requires_grad, ridge_eps
 from .types import Model, Structure
 from ..model.schema import (GEOM_CUBOID, GEOM_CYLINDER, GEOM_SPHERE,
                             JOINT_FREE3D_EULER, JOINT_FREE3D_EXP,
@@ -325,15 +327,11 @@ def _grad_input(x):
     return x.view_as(x) if x.requires_grad else x.detach().requires_grad_()
 
 
-def _outer_graph(*xs):
-    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
-
-
 def el_terms(struct: Structure, model: Model, q, v):
     """(dL/dq, dL/dv) as (n, B): lanes are independent, so the gradient of
-    the lane-sum is the per-lane gradient. Differentiable again when q or v
-    carries an outer graph (``create_graph``)."""
-    create = _outer_graph(q, v)
+    the lane-sum is the per-lane gradient. Differentiable again when q, v or
+    a Model leaf carries an outer graph (``create_graph``)."""
+    create = dynamics.outer_graph(model, q, v)
     with dynamics.inner_graph(keep=create):
         q_, v_ = _grad_input(q), _grad_input(v)
         L = torch.sum(lagrangian(struct, model, q_, v_))
@@ -343,7 +341,7 @@ def el_terms(struct: Structure, model: Model, q, v):
 
 def momentum(struct: Structure, model: Model, q, v):
     """dL/dv == dT/dv (V does not depend on v)."""
-    create = _outer_graph(q, v)
+    create = dynamics.outer_graph(model, q, v)
     with dynamics.inner_graph(keep=create):
         v_ = _grad_input(v)
         L = torch.sum(lagrangian(struct, model, q, v_))
@@ -953,29 +951,35 @@ def _chord(residual_fn, max_iter, tol, inputs, v_guess, lu):
     return v_best
 
 
-def _residual_graph(residual_fn, inputs: StepInputs, v_star):
-    """r at v* with (u, q_base, p_base) and v as fresh leaves; call under
-    ``dynamics.inner_graph``."""
+def _residual_graph(residual_fn, inputs: StepInputs, v_star, wrt=None):
+    """r at v* and the tensors to pull back into; call under
+    ``dynamics.inner_graph``. ``wrt`` None: (u, q_base, p_base) as fresh
+    leaves. Otherwise ``inputs`` already holds the leaves to pull back into
+    and ``wrt`` lists them (``_ChordSolveFn``: every input that requires
+    grad, Model leaves included)."""
+    v = v_star.detach().requires_grad_()
+    if wrt is not None:
+        return residual_fn(v, inputs), v, tuple(wrt)
     u = inputs.u.detach().requires_grad_()
     q_base = inputs.q_base.detach().requires_grad_()
     p_base = inputs.p_base.detach().requires_grad_()
-    v = v_star.detach().requires_grad_()
     r = residual_fn(v, StepInputs(model=inputs.model, u=u, q_base=q_base,
                                   p_base=p_base, gamma=inputs.gamma.detach()))
     return r, v, (u, q_base, p_base)
 
 
-def chord_adjoint(residual_fn, inputs: StepInputs, v_star, g):
+def chord_adjoint(residual_fn, inputs: StepInputs, v_star, g, wrt=None):
     """The exact at-solution IFT adjoint of the chord solve (the JAX
     package's ``_chord_bwd(..., 'exact', ...)``): (u_bar, q_base_bar,
-    p_base_bar) for the cotangent ``g`` (n, B) of v*.
+    p_base_bar) for the cotangent ``g`` (n, B) of v*, or the cotangents of
+    ``wrt`` (``_residual_graph``).
 
     One residual graph at v*: its n pullbacks along the basis give the rows
     of J = dr/dv, then lambda = (ridged J^T)^{-1} g, and -lambda is pulled
     back through the same graph into the inputs."""
     n = v_star.shape[0]
     with dynamics.inner_graph():
-        r, v, wrt = _residual_graph(residual_fn, inputs, v_star)
+        r, v, wrt = _residual_graph(residual_fn, inputs, v_star, wrt)
         basis = torch.eye(n, dtype=v.dtype, device=v.device)[:, :, None]
         rows = [torch.autograd.grad(r, v, basis[i].expand_as(r),
                                     retain_graph=True)[0]
@@ -998,10 +1002,12 @@ def parse_bwd_mode(bwd_mode: str):
     return "refine", int(k) if k else 2
 
 
-def chord_bwd(residual_fn, bwd_mode: str, inputs: StepInputs, v_star, lu, g):
+def chord_bwd(residual_fn, bwd_mode: str, inputs: StepInputs, v_star, lu, g,
+              wrt=None):
     """The chord solve's adjoint in ``bwd_mode`` (the JAX package's
     ``_chord_bwd``): (u_bar, q_base_bar, p_base_bar) for the cotangent ``g``
-    of v*. ``lu`` is the factor the forward saved:
+    of v*, or the cotangents of ``wrt`` (``_residual_graph``). ``lu`` is
+    the factor the forward saved:
 
     - ``exact``: ``chord_adjoint`` (J^T rebuilt at v*; ``lu`` unused);
     - ``fwdfac``: ``lu`` is the exact J at v*, factored in the forward:
@@ -1014,9 +1020,9 @@ def chord_bwd(residual_fn, bwd_mode: str, inputs: StepInputs, v_star, lu, g):
       residual compares False and is never kept)."""
     kind, k = parse_bwd_mode(bwd_mode)
     if kind == "exact":
-        return chord_adjoint(residual_fn, inputs, v_star, g)
+        return chord_adjoint(residual_fn, inputs, v_star, g, wrt)
     with dynamics.inner_graph():
-        r, v, wrt = _residual_graph(residual_fn, inputs, v_star)
+        r, v, wrt = _residual_graph(residual_fn, inputs, v_star, wrt)
         g = g.to(v.dtype)
         lam = gauss_solve_T(lu, g)
         if kind == "refine":
@@ -1039,51 +1045,69 @@ def chord_bwd(residual_fn, bwd_mode: str, inputs: StepInputs, v_star, lu, g):
 
 class _ChordSolveFn(torch.autograd.Function):
     """v* = chord(inputs) with the IFT adjoint of ``bwd_mode`` as its
-    backward."""
+    backward. Its tensor arguments are the factor, the guess, u, q_base,
+    p_base, gamma and the Model's leaves in field order (a Function takes
+    tensors, not the dataclass), so the backward reaches every leaf."""
 
     @staticmethod
-    def forward(ctx, residual_fn, max_iter, tol, bwd_mode, model, lu,
-                v_guess, u, q_base, p_base, gamma):
-        inputs = StepInputs(model=model, u=u, q_base=q_base, p_base=p_base,
-                            gamma=gamma)
+    def forward(ctx, residual_fn, max_iter, tol, bwd_mode, lu, v_guess, u,
+                q_base, p_base, gamma, *leaves):
+        inputs = StepInputs(model=Model(*(x.detach() for x in leaves)),
+                            u=u, q_base=q_base, p_base=p_base, gamma=gamma)
         v_star = _chord(residual_fn, max_iter, tol, inputs, v_guess, lu)
         if bwd_mode == "fwdfac":
             # the exact J at v*, factored here in the forward
             lu = make_chord_lu(residual_fn, inputs, v_star)
         ctx.residual_fn = residual_fn
         ctx.bwd_mode = bwd_mode
-        ctx.model = model
-        saved = (u, q_base, p_base, gamma, v_star)
-        ctx.save_for_backward(*saved, *(() if bwd_mode == "exact"
-                                        else (lu,)))
+        ctx.save_for_backward(v_star, lu, u, q_base, p_base, gamma, *leaves)
         return v_star
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        u, q_base, p_base, gamma, v_star, *lu = ctx.saved_tensors
-        inputs = StepInputs(model=ctx.model, u=u, q_base=q_base,
-                            p_base=p_base, gamma=gamma)
-        gu, gq, gp = chord_bwd(ctx.residual_fn, ctx.bwd_mode, inputs, v_star,
-                               lu[0] if lu else None, g)
-        return (None,) * 7 + (gu, gq, gp, None)
+        v_star, lu, *xs = ctx.saved_tensors
+        # u, q_base, p_base, gamma, then the leaves (lu and v_guess get
+        # none); -lambda is always pulled back into u, q_base and p_base,
+        # as the adjoint did before it reached gamma and the leaves, so a
+        # pullback's kernel launches do not depend on what requires grad
+        need = ctx.needs_input_grad[6:]
+        pull = (True,) * 3 + tuple(need[3:])
+        xs = [x.detach().requires_grad_(w) for x, w in zip(xs, pull)]
+        inputs = StepInputs(Model(*xs[4:]), *xs[:4])
+        got = iter(chord_bwd(ctx.residual_fn, ctx.bwd_mode, inputs, v_star,
+                             lu, g, [x for x in xs if x.requires_grad]))
+        grads = [next(got) if w else None for w in pull]
+        return (None,) * 6 + tuple(x if w else None
+                                   for x, w in zip(grads, need))
 
 
 def chord_solve(residual_fn, max_iter, tol, bwd_mode: str,
                 inputs: StepInputs, v_guess, lu):
     """Chord solve with the IFT adjoint of ``bwd_mode`` (``chord_bwd``).
 
-    Gradients reach ``inputs.u``, ``q_base`` and ``p_base``; the guess and
-    the factor are solver ingredients and get none."""
+    Gradients reach ``inputs.u``, ``q_base``, ``p_base``, ``gamma`` and the
+    Model's leaves; the guess and the factor are solver ingredients and get
+    none."""
     parse_bwd_mode(bwd_mode)
-    if not (torch.is_grad_enabled()
-            and any(x.requires_grad for x in (inputs.u, inputs.q_base,
-                                              inputs.p_base))):
+    if not (torch.is_grad_enabled() and _requires_grad(inputs)):
         with torch.no_grad():
             return _chord(residual_fn, max_iter, tol, inputs, v_guess, lu)
+    m = inputs.model
     return _ChordSolveFn.apply(residual_fn, max_iter, tol, bwd_mode,
-                               inputs.model, lu.detach(), v_guess.detach(),
-                               inputs.u, inputs.q_base, inputs.p_base,
-                               inputs.gamma)
+                               lu.detach(), v_guess.detach(), inputs.u,
+                               inputs.q_base, inputs.p_base, inputs.gamma,
+                               *(getattr(m, k) for k in _LEAVES))
+
+
+def newton_solve(residual_fn, max_iter, tol, inputs: StepInputs, v_guess):
+    """The JAX package's ``newton_solve``: the chord Jacobian linearized and
+    factored at ``v_guess`` (``make_chord_lu``), ``max_iter`` masked sweeps
+    with the per-lane best iterate (``_chord``), and the exact at-solution
+    IFT adjoint (``chord_adjoint``) as its backward."""
+    lu = make_chord_lu(residual_fn, inputs, v_guess)
+    return chord_solve(residual_fn, max_iter, tol, "exact", inputs, v_guess,
+                       lu)
 
 
 def factor_substeps(frame_skip: int, refresh: int):
@@ -1095,25 +1119,42 @@ def factor_substeps(frame_skip: int, refresh: int):
             if k == 0 or (refresh < frame_skip and k % refresh == 0)]
 
 
+def step_bases(struct: Structure, model: Model, state: LaneSimState):
+    """(gamma, q_base, p_base) of one substep from ``state`` (the JAX
+    package's ``bases``). BDF1: gamma = h (1, 1). BDF2: gamma = 2h/3,
+    q_base = (4q - q_)/3, p_base = (4p(q, v) - p(q_, v_))/3, and on a lane
+    whose counter is 0 (no history yet) BDF1's, through ``torch.where``:
+    no sync."""
+    dtype = state.q.dtype
+    h = model.h.to(dtype)
+    p_now = momentum(struct, model, state.q, state.qdot)
+    if struct.integrator.upper() != "BDF2":
+        return h.reshape(1, 1), state.q, p_now
+    first = (state.t == 0)[None]                                 # (1, B)
+    p_prev = momentum(struct, model, state.q_prev, state.qdot_prev)
+    gamma = torch.where(first, h, 2.0 * h / 3.0)
+    q_base = torch.where(first, state.q, (4.0 * state.q - state.q_prev) / 3.0)
+    p_base = torch.where(first, p_now, (4.0 * p_now - p_prev) / 3.0)
+    return gamma, q_base, p_base
+
+
 def build_env_step(struct: Structure, frame_skip: int, *, refresh: int = 0,
                    bwd_mode: str = "exact", max_iter: int = 0,
                    fused_pw=None, moving_point: bool = False):
-    """``frame_skip`` implicit BDF1 substeps under one held control.
+    """``frame_skip`` implicit BDF1 or BDF2 substeps (the scene's
+    integrator, ``step_bases``) under one held control.
 
-    env_step(model, state, u) -> state', differentiable w.r.t. the state and
-    ``u``. The chord Jacobian is factored at the substeps of
-    ``factor_substeps(frame_skip, refresh)``: once per env step at refresh
-    0 (the amortized default), at every substep at refresh 1, which with
-    ``bwd_mode='exact'`` is the single instance's step run frame_skip
-    times. ``bwd_mode`` picks the chord solve's adjoint (``chord_bwd``).
+    env_step(model, state, u) -> state', differentiable w.r.t. the state,
+    ``u`` and the Model's leaves. The chord Jacobian is factored at the
+    substeps of ``factor_substeps(frame_skip, refresh)``: once per env step
+    at refresh 0 (the amortized default), at every substep at refresh 1,
+    which with ``bwd_mode='exact'`` is ``build_step`` run frame_skip times.
+    ``bwd_mode`` picks the chord solve's adjoint (``chord_bwd``).
     ``max_iter`` overrides the scene's chord budget;
     ``fused_pw = (pw, meta)`` from ``ops.lane_contact.make_pair_wrenches``
     routes contact through K1; ``moving_point`` takes the megastep's
     contact-torque convention (``contact_terms``).
     """
-    if struct.integrator.upper() != "BDF1":
-        raise ValueError(f"{struct.integrator}: only BDF1 is ported to the "
-                         "lanes stepper (BDF2 is ROADMAP queue 1, item 6)")
     parse_bwd_mode(bwd_mode)
     residual_fn = make_residual(struct, fused_pw, moving_point)
     miter = max_iter or struct.solver_max_iter
@@ -1125,23 +1166,47 @@ def build_env_step(struct: Structure, frame_skip: int, *, refresh: int = 0,
         tol = max(struct.solver_tol, 1e-7 if dtype == torch.float32
                   else 1e-12)
         u = u.to(dtype)
-        gamma = model.h.to(dtype).reshape(1, 1)
         lu = None
         for k in range(frame_skip):
-            inputs = StepInputs(model=model, u=u, q_base=state.q,
-                                p_base=momentum(struct, model, state.q,
-                                                state.qdot),
-                                gamma=gamma)
+            gamma, q_base, p_base = step_bases(struct, model, state)
+            inputs = StepInputs(model=model, u=u, q_base=q_base,
+                                p_base=p_base, gamma=gamma)
             if k in fresh:
                 lu = make_chord_lu(residual_fn, inputs, state.qdot)
             v_new = chord_solve(residual_fn, miter, tol, bwd_mode, inputs,
                                 state.qdot, lu)
-            state = LaneSimState(q=state.q + gamma * v_new, qdot=v_new,
+            state = LaneSimState(q=q_base + gamma * v_new, qdot=v_new,
                                  q_prev=state.q, qdot_prev=state.qdot,
                                  t=state.t + 1)
         return state
 
     return env_step
+
+
+def build_step(struct: Structure):
+    """step(model, state (LaneSimState, (n, B) leaves), u (nu, B)) ->
+    state': one implicit BDF1/BDF2 step per lane through ``newton_solve``
+    (the JAX package's ``lanes.build_step``, plain contact): a chord factor
+    at every step, the scene's chord budget, the exact adjoint. Model
+    leaves may carry a trailing lane axis (``body_mass`` (NB, B),
+    ``body_inertia`` (NB, 3, B), the contact parameters (K, B))."""
+    residual_fn = make_residual(struct)
+    max_iter = struct.solver_max_iter
+
+    def step(model: Model, state: LaneSimState, u):
+        dtype = state.q.dtype
+        tol = max(struct.solver_tol, 1e-7 if dtype == torch.float32
+                  else 1e-12)
+        gamma, q_base, p_base = step_bases(struct, model, state)
+        inputs = StepInputs(model=model, u=u.to(dtype), q_base=q_base,
+                            p_base=p_base, gamma=gamma)
+        v_new = newton_solve(residual_fn, max_iter, tol, inputs, state.qdot)
+        return LaneSimState(q=q_base + gamma * v_new, qdot=v_new,
+                            q_prev=state.q, qdot_prev=state.qdot,
+                            t=state.t + 1)
+
+    step.residual_fn = residual_fn
+    return step
 
 
 def to_lanes(state_batch) -> LaneSimState:

@@ -4,7 +4,9 @@ Port of ``tactilesimulation_tpu/sim/simulation.py``:
 
 - ``Simulator``: the functional API bound to one scene: ``step``,
   ``make_rollout_dense``, ``make_rollout_states``, ``make_rollout_strided``,
-  tactile and variable queries. JAX jits and scans these; here they are
+  tactile and variable queries, for one instance or a batch of them
+  (states (B, n), the step counter (B,); ``init_state`` makes either; the
+  JAX package ``vmap``s the single instance). JAX jits and scans these; here they are
   eager Python loops over device tensors that never wait for the card (no
   ``.item()``, no host copies inside a rollout). Gradients flow through
   ``integrators.newton_solve``'s implicit-function adjoint; ``remat``
@@ -54,26 +56,40 @@ class Simulator:
 
     # -- state ------------------------------------------------------------
     def init_state(self, model: Optional[Model] = None, q=None,
-                   qdot=None) -> SimState:
+                   qdot=None, batch: Optional[int] = None) -> SimState:
+        """The model's initial state, or (q, qdot) where given. A batch of
+        states when ``batch`` is given or q / qdot is (B, n): every leaf
+        (B, n), the step counter (B,) zeros."""
         model = self.model if model is None else model
         state = integrators.initial_state(self.struct, model)
         as_state = lambda a: torch.as_tensor(a, dtype=state.q.dtype,
                                              device=state.q.device)
+        q = None if q is None else as_state(q)
+        qdot = None if qdot is None else as_state(qdot)
+        if batch is None:
+            batch = next((a.shape[0] for a in (q, qdot)
+                          if a is not None and a.ndim == 2), None)
+        if batch is not None:
+            vec = lambda a: a.expand(batch, a.shape[-1]).contiguous()
+            state = SimState(q=vec(state.q), qdot=vec(state.qdot),
+                             q_prev=vec(state.q_prev),
+                             qdot_prev=vec(state.qdot_prev),
+                             t=state.t.expand(batch).contiguous())
+            q = None if q is None else vec(q)
+            qdot = None if qdot is None else vec(qdot)
         if q is not None:
-            q = as_state(q)
             state = state.replace(q=q, q_prev=q)
         if qdot is not None:
-            qdot = as_state(qdot)
             state = state.replace(qdot=qdot, qdot_prev=qdot)
         return state
 
     def tactile(self, model: Model, state: SimState):
-        """(ntac * 3,) sensor-frame tactile field at ``state``: the read's
-        query where ``tactile_query.may_read`` allows it."""
+        """(..., ntac * 3) sensor-frame tactile field at ``state``: the
+        read's query where ``tactile_query.may_read`` allows it."""
         if tactile_query.may_read(self.struct, model, state.q, state.qdot):
             return tactile_query.tactile_field(
-                self.struct, model, state.q, state.qdot).reshape(-1)
-        return self._tactile_field(model, state.q, state.qdot).reshape(-1)
+                self.struct, model, state.q, state.qdot).flatten(-2)
+        return self._tactile_field(model, state.q, state.qdot).flatten(-2)
 
     def variables(self, model: Model, state: SimState):
         return kinematics.ee_positions(self.struct, model, state.q)
@@ -90,14 +106,17 @@ class Simulator:
                            with_tactile: bool = True):
         """(model, state0, us (T, nu)) -> (state_T, qs (T, n), vars
         (T, nvar), tactiles (T, ntac*3)): every step's outputs
-        (EpisodicSimFunction's), the field in the step's layout. ``remat``
-        recomputes each step in the backward."""
+        (EpisodicSimFunction's), the field in the step's layout. Over a
+        batch, states (B, ·), controls (T, nu) shared or (B, T, nu), the
+        outputs (B, T, ·). ``remat`` recomputes each step in the
+        backward."""
         struct, step = self.struct, self.step
 
         def body(model, state, u):
             state = step(model, state, u)
-            tac = (self._tactile_field(model, state.q, state.qdot).reshape(-1)
-                   if with_tactile else state.q.new_zeros(0))
+            tac = (self._tactile_field(model, state.q, state.qdot).flatten(-2)
+                   if with_tactile
+                   else state.q.new_zeros(state.q.shape[:-1] + (0,)))
             return state, kinematics.ee_positions(struct, model, state.q), tac
 
         def rollout(model, state0, us):
@@ -107,16 +126,18 @@ class Simulator:
 
     def make_rollout_states(self):
         """(model, state0, us (T, nu)) -> SimState with (T, ...) leaves:
-        the state after every step."""
+        the state after every step (over a batch (B, T, ...), controls as
+        ``make_rollout_dense``'s)."""
         step = self.step
 
         def rollout(model, state0, us):
             states = []
             s = state0
-            for u in us:
+            for u in us.unbind(-2):
                 s = step(model, s, u)
                 states.append(s)
-            return SimState(*(torch.stack([getattr(x, k) for x in states])
+            return SimState(*(torch.stack([getattr(x, k) for x in states],
+                                          dim=-1 if k == "t" else -2)
                               for k in ("q", "qdot", "q_prev", "qdot_prev",
                                         "t")))
 
@@ -127,12 +148,15 @@ class Simulator:
         """(model, state0, us (K, nu)) -> (state_K, qs (K, n),
         vars (K, nvar), tactiles (K, ntac*3)): outputs at chunk ends only;
         each control is held for ``stride`` sim steps (frame_skip with
-        save_last_frame_var_only). ``remat`` recomputes each chunk in the
-        backward.
+        save_last_frame_var_only). Over a batch, states (B, ·), controls
+        (K, nu) shared or (B, K, nu), the outputs (B, K, ·). ``remat``
+        recomputes each chunk in the backward: one non-reentrant checkpoint
+        per chunk for the whole batch.
 
         ``fast_tactile`` queries the field through the tactile read
-        where ``tactile_query.may_read`` allows it (no gradient can flow);
-        otherwise the field keeps its graph."""
+        where ``tactile_query.may_read`` allows it (no gradient can flow):
+        over a batch, one read of every instance a chunk; otherwise the
+        field keeps its graph."""
         struct, step = self.struct, self.step
 
         def chunk(model, state, u):
@@ -141,10 +165,10 @@ class Simulator:
             if fast_tactile and tactile_query.may_read(struct, model, state.q,
                                                        state.qdot):
                 tac = tactile_query.tactile_field(
-                    struct, model, state.q, state.qdot).reshape(-1)
+                    struct, model, state.q, state.qdot).flatten(-2)
             else:
                 tac = self._tactile_field(model, state.q,
-                                          state.qdot).reshape(-1)
+                                          state.qdot).flatten(-2)
             return state, kinematics.ee_positions(struct, model, state.q), tac
 
         def rollout(model, state0, us):
@@ -154,21 +178,24 @@ class Simulator:
 
 
 def _scan(body, remat, model, state, us):
-    """(state, stacked q, vars, tactiles) of ``body`` over the controls;
-    with ``remat`` under grad mode each body call is a non-reentrant
-    checkpoint (its activations recomputed in the backward)."""
+    """(state, stacked q, vars, tactiles) of ``body`` over the controls
+    (us (T, nu), or (B, T, nu) over a batch; the outputs stacked on the
+    axis before their last); with ``remat`` under grad mode each body call
+    is a non-reentrant checkpoint (its activations recomputed in the
+    backward)."""
     if remat and torch.is_grad_enabled():
         call = lambda *a: checkpoint(body, *a, use_reentrant=False,
                                      preserve_rng_state=False)
     else:
         call = body
     qs, vars_, tacs = [], [], []
-    for u in us:
+    for u in us.unbind(-2):
         state, var, tac = call(model, state, u)
         qs.append(state.q)
         vars_.append(var)
         tacs.append(tac)
-    return state, torch.stack(qs), torch.stack(vars_), torch.stack(tacs)
+    return (state, torch.stack(qs, dim=-2), torch.stack(vars_, dim=-2),
+            torch.stack(tacs, dim=-2))
 
 
 # ---------------------------------------------------------------------------

@@ -80,16 +80,33 @@ class Model:
         return self.h.device
 
 
+# each Model leaf's dims for one instance; a leaf with more carries batch
+# axes (leading in the single-instance core, trailing on the lanes stepper)
+LEAF_NDIM = {
+    "h": 0, "gravity": 1, "joint_pos": 2, "joint_quat": 2, "joint_axis0": 2,
+    "joint_axis1": 2, "dof_damping": 1, "dof_lim_lower": 1,
+    "dof_lim_upper": 1, "dof_lim_stiffness": 1, "q_init": 1, "qdot_init": 1,
+    "body_pos": 2, "body_quat": 2, "body_mass": 1, "body_inertia": 2,
+    "body_size": 2, "body_rgba": 2, "motor_kp": 1, "motor_kd": 1,
+    "motor_ctrl_lo": 1, "motor_ctrl_hi": 1, "motor_pos_mask": 1,
+    "cp_pos": 2, "pair_kn": 1, "pair_kt": 1, "pair_mu": 1,
+    "pair_damping": 1, "ground_pos": 1, "ground_normal": 1, "tac_pos": 2,
+    "tac_normal": 2, "tac_axis0": 2, "tac_axis1": 2, "tac_kn": 1,
+    "tac_kt": 1, "tac_mu": 1, "tac_damping": 1, "ee_pos": 2,
+    "virtual_pos": 2, "virtual_quat": 2}
+
+
 @dataclasses.dataclass(frozen=True)
 class SimState:
-    """Single-instance integrator state: ``(q, qdot)`` plus one step of
-    history for BDF2 and the step counter (a 0-d int32 tensor, so BDF2's
-    first-step test stays on the device)."""
+    """Integrator state: ``(q, qdot)`` plus one step of history for BDF2
+    and the step counter (an int32 tensor, so BDF2's first-step test stays
+    on the device): (n,) leaves and a 0-d counter for one instance, (B, n)
+    and (B,) for a batch."""
     q: torch.Tensor
     qdot: torch.Tensor
     q_prev: torch.Tensor              # previous-step q (BDF2 history)
     qdot_prev: torch.Tensor
-    t: torch.Tensor                   # () int32 step counter
+    t: torch.Tensor                   # () or (B,) int32 step counter
 
     def replace(self, **changes) -> "SimState":
         return dataclasses.replace(self, **changes)

@@ -425,6 +425,15 @@ def test_tactile_read_matches_plain_version(card, name):
     Smoke().read_check(name, card)
 
 
+# the batched read (one launch for B states): against its plain version
+# over the batch by the read rule, and against B single launches bit for
+# bit (chip_smoke.py Smoke.batch_read_check)
+@pytest.mark.parametrize("name,B", [("rolling_ball_200", 8)]
+                         + [(name, 3) for name in READ_SCENES])
+def test_batched_tactile_read(card, name, B):
+    Smoke().batch_read_check(name, card, B)
+
+
 def test_tactile_read_raises_without_launching(card):
     struct, model, q, v = read_case("tactile_push", torch.float32, card)
     plan = tactile_query.read_plan(struct, model)
