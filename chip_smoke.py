@@ -250,6 +250,38 @@ seconds):
               then ms, instance steps/s and eager aten ops of a step at
               B = 1 and B = BATCH_B, and the device's busy share over a
               batched step.
+15. scene_xml - slice 13, scenes from redmax XML files: (a)
+              task_scenes.rolling_ball(ROLL_RES) (9 dofs, BDF2, 40,000
+              markers) and task_scenes.tactile_push() written as XML by
+              write_scene_xml (floats by repr), parsed by the port's
+              xml_parser and built on the card: every Structure field
+              equal and every Model leaf bit-equal to the bundled scene's
+              (tree_diff); each file compiled by the native compiler
+              (model/native.py, g++ on the card's host) and held to the
+              build by the JAX package's test checks (native_mismatches,
+              NATIVE_TOL); parse, build and native-compile seconds; (b) the
+              RollingBall CLI (examples/rolling_ball_speed.py) with --scene
+              at f32 from its start state, at --batch SCENE_CLI_BATCHES,
+              its steps cut so that a probe chunk predicts the CLI's five
+              runs and one more within SCENE_CLI_BUDGET_S: one read launch
+              a chunk (the batched entry at B > 1) and no points-entry
+              launch, its last run's trajectory and fields bit-equal to the
+              bundled scene's rollout of the same controls; the CLI's FPS;
+              (c) GD on TactilePush made from its file
+              (tactile_push.make(scene_path=)) with gd_tactile.yaml's actor
+              at SCENE_GD (E = 16, H = 5, 2 epochs, the second profiled by
+              config.profile_epochs into <logdir>/profile): K2 = K3 = H,
+              K1 = 1 + H and K1T = H - 1 launches an epoch, the twin never;
+              finite loss, the parameters move; the trace names K2's and
+              K3's kernels (fwd_kernel, bwd_kernel) among its CUDA kernel
+              events; the scalar log holds GD_TAGS for each epoch, from
+              whichever backend the writer took (printed);
+              profiling.device_memory_stats reports a peak; (d) the facade
+              Simulation(<the RollingBall file>) at f32 over
+              SCENE_FACADE_STEPS steps through forward and
+              get_tactile_force_vector: bit-equal to Simulation((struct,
+              model)) of the bundled scene, one read launch a step.
+              Nothing renders: matplotlib is never imported.
 
 Phases 4-7 run in this process (MAIN_PHASES); the others, in the groups of
 WORKERS, each in a process of its own (``chip_smoke.py --child OUT PHASE...``,
@@ -465,7 +497,7 @@ INS_SETTLE_CUT = ((2, 2, 2), 2)
 MAIN_PHASES = ("slice", "train", "cross", "rolling")
 WORKERS = (("insertion",), ("grasp",), ("dclaw", "grasp_cross"),
            ("ppo", "adjoint"), ("optim_cli", "optim_traj"),
-           ("optim_solver",), ("batch",))
+           ("optim_solver",), ("batch",), ("scene_xml",))
 WORKER_THREADS = 1
 MAIN_THREADS = 2
 DEADLINE_S = 1140.0
@@ -558,6 +590,30 @@ BATCH_SEED = 12
 BATCH_F64_TOL = ADJ_F64_TOL
 BATCH_CLI_BUDGET_S = 60.0
 BATCH_COPIES_TOL = 1e-6
+# the scene_xml phase (slice 13): the bundled RollingBall (ROLL_RES) and
+# TactilePush scenes written as redmax XML (write_scene_xml), parsed and
+# built on the card, every Structure field equal and every Model leaf
+# bit-equal to the bundled scene's, and compiled by the native compiler
+# (checked as NATIVE_TOL says); the RollingBall CLI with --scene at --batch
+# SCENE_CLI_BATCHES, its steps cut so that a probe chunk predicts the CLI's
+# five runs and the bundled run within SCENE_CLI_BUDGET_S, bit-equal to the
+# bundled scene's rollout of the same controls; GD on TactilePush made from
+# its file with gd_tactile.yaml's actor at SCENE_GD (episodes, horizon,
+# epochs, profiled epochs [lo, hi)); the facade from the RollingBall file
+# over SCENE_FACADE_STEPS steps, bit-equal to the facade of the bundled
+# scene
+SCENE_CLI_BATCHES = (1, BATCH_B)
+SCENE_CLI_BUDGET_S = 40.0
+SCENE_GD = {"E": 16, "H": 5, "epochs": 2, "profile": (1, 2)}
+SCENE_FACADE_STEPS = 5
+GD_TAGS = ("rewards/step", "rewards/iter", "loss/iter", "grad_norm/iter",
+           "profile/update_mean_s")
+# the native compiler against the parser and builder, the JAX package's
+# tests/test_native_compiler.py checks: (atol, rtol) by array
+NATIVE_TOL = {"joint_pos": (1e-12, 0), "body_mass": (0, 1e-9),
+              "body_inertia": (0, 1e-9), "body_pos": (1e-9, 0),
+              "body_size": (1e-12, 0), "cp_pos": (1e-9, 0),
+              "tac_pos": (1e-9, 0), "tac_normal": (1e-9, 0)}
 MEGA = "tactilesimulation_tpu_torch/csrc/megastep.cu"
 LANE = "tactilesimulation_tpu_torch/csrc/lane_contact.cu"
 DENSE = "tactilesimulation_tpu_torch/csrc/dense_contact.cu"
@@ -589,6 +645,316 @@ INS_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "tactile_insertion_trans_and_rot.yaml")
 GD_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
                       "TactilePushExp", "cfg", "gd_tactile.yaml")
+
+
+def _floats(v):
+    """Space-separated floats by repr (they read back bit for bit)."""
+    return " ".join(repr(float(x)) for x in np.asarray(v).reshape(-1))
+
+
+def _identity_frame(body):
+    return (not np.asarray(body.pos).any()
+            and np.array_equal(body.quat, [1.0, 0.0, 0.0, 0.0]))
+
+
+def write_scene_xml(spec, path, mesh_fallback_extent=0.04, exact=True):
+    """Write the SceneSpec ``spec`` as a redmax XML file at ``path`` (the
+    reference's schema, as ``xml_parser.parse_scene`` reads it), with its
+    sidecar files (contact points, abstract tactile specs) beside it; floats
+    by repr. Raises ValueError, naming the field, for what the schema cannot
+    carry exactly: joints not in depth-first order or holding two bodies,
+    ``JointSpec.q_init``, explicit contact points on a primitive body,
+    body-frame markers that are no rect_array grid, sidecar points or
+    markers of a body whose frame is not the joint's, solver budgets above
+    the parser's caps, mesh bodies of another extent. With ``exact`` False
+    the first two of those markers and points are written as near as the
+    schema allows (body-frame markers as an abstract sensor that the
+    parser moves into the joint frame; explicit points on a primitive body
+    left out), and the returned list names each such field and why; it is
+    empty when the file carries the spec exactly."""
+    import xml.etree.ElementTree as ET
+    from tactilesimulation_tpu_torch.model import assets, schema
+    base = os.path.dirname(os.path.abspath(path))
+    inexact = []
+
+    def cannot(field, why):
+        if exact:
+            raise ValueError(f"{field}: {why}")
+        inexact.append(f"{field}: {why}")
+
+    stem = os.path.splitext(os.path.basename(path))[0]
+    jtype = {v: k for k, v in schema.JOINT_TYPE_NAMES.items()}
+    root = ET.Element("redmax", model=spec.name)
+    ET.SubElement(root, "option", integrator=spec.integrator,
+                  timestep=repr(float(spec.timestep)),
+                  gravity=_floats(spec.gravity))
+    if spec.solver_max_iter > 10 or spec.solver_max_ls > 6:
+        raise ValueError("solver_max_iter / solver_max_ls: above the parser's "
+                         "caps (10, 6)")
+    ET.SubElement(root, "solver_option", tol=repr(float(spec.solver_tol)),
+                  max_iter=str(spec.solver_max_iter),
+                  max_ls=str(spec.solver_max_ls))
+    if spec.ground_pos is not None:
+        ET.SubElement(root, "ground", pos=_floats(spec.ground_pos),
+                      normal=_floats(spec.ground_normal))
+
+    # the joint tree, depth first; the parser numbers joints and bodies in
+    # document order
+    children = {}
+    for j, joint in enumerate(spec.joints):
+        children.setdefault(joint.parent, []).append(j)
+    order = []
+    stack = list(reversed(children.get(-1, [])))
+    while stack:
+        j = stack.pop()
+        order.append(j)
+        stack.extend(reversed(children.get(j, [])))
+    if order != list(range(len(spec.joints))):
+        raise ValueError("joints: not numbered depth first")
+    body_of = {}
+    for bi, body in enumerate(spec.bodies):
+        if body.joint in body_of:
+            raise ValueError(f"bodies[{bi}].joint: a second body on joint "
+                             f"{body.joint}")
+        body_of[body.joint] = bi
+    if sorted(body_of, key=body_of.get) != sorted(body_of):
+        raise ValueError("bodies: not in their joints' order")
+
+    def body_xml(link, bi):
+        body = spec.bodies[bi]
+        gname = {schema.GEOM_CUBOID: "cuboid",
+                 schema.GEOM_CYLINDER: "cylinder",
+                 schema.GEOM_SPHERE: "sphere", schema.GEOM_MESH: "mesh",
+                 schema.GEOM_ABSTRACT: "abstract"}[body.gtype]
+        el = ET.SubElement(link, "body", name=body.name, type=gname,
+                           pos=_floats(body.pos), quat=_floats(body.quat),
+                           density=repr(float(body.density)),
+                           rgba=_floats(body.rgba))
+        if body.texture:
+            el.set("texture", body.texture)
+        if body.contact_points is not None and gname != "abstract":
+            cannot(f"bodies[{bi}].contact_points", f"explicit points on a "
+                   f"{gname} body (left out)")
+        if (body.mass is not None or body.inertia is not None) and \
+                gname != "abstract":
+            raise ValueError(f"bodies[{bi}].mass/inertia: given for a "
+                             f"{gname} body")
+        size = np.asarray(body.size, np.float64)
+        if gname == "cuboid":
+            el.set("size", _floats(size))
+            if body.contact_resolution is not None:
+                el.set("general_contact_resolution",
+                       " ".join(str(int(n)) for n in body.contact_resolution))
+        elif gname == "cylinder":
+            if size[2] != 0.0:
+                raise ValueError(f"bodies[{bi}].size[2]: not 0 on a cylinder")
+            el.set("radius", repr(float(size[0])))
+            el.set("length", repr(float(2.0 * size[1])))
+            if body.contact_angle_resolution is not None:
+                el.set("general_contact_angle_resolution",
+                       str(int(body.contact_angle_resolution)))
+                el.set("general_contact_radius_resolution",
+                       str(int(body.contact_radius_resolution or 2)))
+            elif body.contact_radius_resolution is not None:
+                raise ValueError(f"bodies[{bi}].contact_radius_resolution: "
+                                 "without an angle resolution")
+        elif gname == "sphere":
+            if size[1:].any():
+                raise ValueError(f"bodies[{bi}].size: a sphere's is (r, 0, 0)")
+            el.set("radius", repr(float(size[0])))
+        elif not np.array_equal(size, np.full(3, mesh_fallback_extent)):
+            raise ValueError(f"bodies[{bi}].size: not the mesh fallback "
+                             "extent")
+        if gname == "mesh" and body.pos_is_world:
+            el.set("transform_type", "OBJ_TO_WORLD")
+        if gname == "abstract":
+            el.set("mass", repr(float(body.mass)))
+            el.set("inertia", _floats(body.inertia))
+            if body.contact_points is not None:
+                if not (body.contact_points_in_joint_frame
+                        and _identity_frame(body)):
+                    raise ValueError(f"bodies[{bi}].contact_points: the body "
+                                     "frame is not the joint frame")
+                name = f"{stem}_{body.name}_contacts.txt"
+                pts = np.asarray(body.contact_points, np.float64)
+                with open(os.path.join(base, name), "w") as fp:
+                    fp.write(f"{len(pts)}\n")
+                    for p in pts:
+                        fp.write(_floats(p) + "\n")
+                ET.SubElement(el, "collision", contacts=name)
+
+    def link_xml(parent_el, j):
+        joint = spec.joints[j]
+        if joint.q_init is not None:
+            raise ValueError(f"joints[{j}].q_init: the schema has no initial "
+                             "joint values")
+        link = ET.SubElement(parent_el, "link", name=joint.name)
+        el = ET.SubElement(link, "joint", name=joint.name,
+                           type=jtype[joint.jtype], pos=_floats(joint.pos),
+                           quat=_floats(joint.quat),
+                           axis0=_floats(joint.axis0),
+                           axis1=_floats(joint.axis1),
+                           damping=repr(float(joint.damping)),
+                           lim_stiffness=repr(float(joint.lim_stiffness)))
+        if joint.lim is not None:
+            el.set("lim", _floats(joint.lim))
+        if j in body_of:
+            body_xml(link, body_of[j])
+        for c in children.get(j, []):
+            link_xml(link, c)
+
+    robot = ET.SubElement(root, "robot")
+    for j in children.get(-1, []):
+        link_xml(robot, j)
+
+    bname = lambda i: spec.bodies[i].name
+    law = lambda c: {k: repr(float(getattr(c, k)))
+                     for k in ("kn", "kt", "mu", "damping")}
+    if spec.contacts:
+        croot = ET.SubElement(root, "contact")
+        for c in spec.contacts:
+            if c.primitive_body < 0:
+                if c.render:
+                    raise ValueError("contacts: render on a ground contact")
+                ET.SubElement(croot, "ground_contact",
+                              body=bname(c.general_body), **law(c))
+            else:
+                ET.SubElement(croot, "general_primitive_contact",
+                              general_body=bname(c.general_body),
+                              primitive_body=bname(c.primitive_body),
+                              render="true" if c.render else "false",
+                              **law(c))
+    if spec.motors:
+        aroot = ET.SubElement(root, "actuator")
+        for m in spec.motors:
+            el = ET.SubElement(
+                aroot, "motor", joint=spec.joints[m.joint].name,
+                ctrl="position" if m.ctrl == schema.CTRL_POSITION
+                else "force", P=repr(float(m.P)), D=repr(float(m.D)))
+            if np.isfinite(m.ctrl_range).any():
+                el.set("ctrl_range", _floats(m.ctrl_range))
+    if spec.tactiles:
+        sroot = ET.SubElement(root, "sensor")
+        for t in spec.tactiles:
+            el = ET.SubElement(sroot, "tactile", name=t.name,
+                               body=bname(t.body),
+                               render="true" if t.render else "false",
+                               **law(t))
+            grid = (t.pos[0], t.pos[-1], t.axis0[0], t.axis1[0])
+            mk = assets.rect_array_markers(*grid, t.rows, t.cols)
+            is_grid = all(np.array_equal(mk[k], np.asarray(getattr(t, k)))
+                          for k in mk)
+            if not t.in_joint_frame and not is_grid:
+                cannot(f"tactiles {t.name!r}", "body-frame markers that are "
+                       "no rect_array grid (written as an abstract sensor, "
+                       "which the parser moves into the joint frame)")
+            if t.in_joint_frame or not is_grid:
+                if t.in_joint_frame and not _identity_frame(
+                        spec.bodies[t.body]):
+                    raise ValueError(f"tactiles {t.name!r}: joint-frame "
+                                     "markers on a body whose frame is not "
+                                     "the joint's")
+                ip = np.asarray(t.image_pos)
+                if (t.rows, t.cols) != (int(ip[:, 0].max()) + 1,
+                                        int(ip[:, 1].max()) + 1):
+                    cannot(f"tactiles {t.name!r}.rows/cols", "an abstract "
+                           "sensor's are its image positions' extent")
+                name = f"{stem}_{t.name}_tactile.txt"
+                assets.write_tactile_spec(os.path.join(base, name), t.pos,
+                                          t.image_pos, t.normal, t.axis0,
+                                          t.axis1)
+                el.set("type", "abstract")
+                el.set("spec", name)
+                continue
+            # body-frame markers: a rect_array grid from its corners, where
+            # the grid it spans is the spec's, bit for bit
+            el.set("type", "rect_array")
+            el.set("resolution", f"{t.rows} {t.cols}")
+            for key, v in zip(("rect_pos0", "rect_pos1", "axis0", "axis1"),
+                              grid):
+                el.set(key, _floats(v))
+    if spec.endeffectors:
+        vroot = ET.SubElement(root, "variable")
+        for e in spec.endeffectors:
+            ET.SubElement(vroot, "endeffector", name=e.name,
+                          joint=spec.joints[e.joint].name,
+                          pos=_floats(e.pos), radius=repr(float(e.radius)))
+    if spec.virtuals:
+        vroot = ET.SubElement(root, "virtual")
+        for v in spec.virtuals:
+            ET.SubElement(vroot, "cuboid", name=v.name, pos=_floats(v.pos),
+                          quat=_floats(v.quat), size=_floats(v.size),
+                          texture=v.texture)
+    tree = ET.ElementTree(root)
+    ET.indent(tree)
+    tree.write(path, encoding="unicode")
+    return inexact
+
+
+def tree_diff(a, b, where=""):
+    """The paths at which two trees differ: dataclasses by field name (the
+    classes may be two packages' copies), sequences and dicts by item,
+    arrays (numpy, tensors, or any with a shape) by dtype, shape and every
+    element, tensors also by device; scalars by ==."""
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        names = [f.name for f in dataclasses.fields(a)]
+        if not (dataclasses.is_dataclass(b) and names == [
+                f.name for f in dataclasses.fields(b)]):
+            return [where]
+        return [d for n in names for d in tree_diff(
+            getattr(a, n), getattr(b, n), f"{where}.{n}")]
+    if isinstance(a, (tuple, list)):
+        if not isinstance(b, (tuple, list)) or len(a) != len(b):
+            return [where]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in tree_diff(x, y, f"{where}[{i}]")]
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or sorted(a) != sorted(b):
+            return [where]
+        return [d for k in a for d in tree_diff(a[k], b[k],
+                                                f"{where}[{k!r}]")]
+    if hasattr(a, "shape") or hasattr(b, "shape"):
+        if (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.device != b.device):
+            return [where]
+        x, y = (t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+                else np.asarray(t) for t in (a, b))
+        same = (x.dtype == y.dtype and x.shape == y.shape
+                and np.array_equal(x, y))
+        return [] if same else [where]
+    return [] if a == b else [where]
+
+
+def native_mismatches(nm, struct, model):
+    """The native compiler's output against the parser's build, by the JAX
+    package's tests/test_native_compiler.py: counts, dof layout, names,
+    the timestep and integrator, joint and body arrays, point clouds,
+    markers, and the per-dof motor count. Returns what disagrees."""
+    ndof = {0: 0, 1: 1, 2: 1, 3: 2, 4: 3, 5: 6, 6: 6}
+    host = lambda name: getattr(model, name).detach().cpu().numpy()
+    bad = [name for name, got, want in (
+        ("ndof", nm.ndof, struct.ndof_q),
+        ("njoints", nm.njoints, struct.njoints),
+        ("nbodies", nm.nbodies, struct.nbodies),
+        ("nmarkers", nm.nmarkers, struct.ndof_tactile // 3),
+        ("npairs", nm.npairs, len(struct.pairs)),
+        ("npoints", nm.npoints, len(struct.cp_joint)),
+        ("joint_names", tuple(nm.joint_names), struct.joint_names),
+        ("body_names", tuple(nm.body_names), struct.body_names),
+        ("joint_type", tuple(nm.joint_type.tolist()), struct.joint_types),
+        ("joint_parent", tuple(nm.joint_parent.tolist()),
+         struct.joint_parents),
+        ("integrator", nm.integrator, struct.integrator),
+        ("ndof_u", sum(ndof[int(nm.joint_type[j])] for j in nm.motor_joint),
+         struct.ndof_u)) if got != want]
+    if not np.isclose(nm.timestep, float(model.h)):
+        bad.append("timestep")
+    for name, (atol, rtol) in NATIVE_TOL.items():
+        want = host(name)
+        got = getattr(nm, name).reshape(want.shape)
+        if not np.allclose(got, want, rtol=rtol, atol=atol):
+            bad.append(name)
+    return bad
 
 
 def cylinder_probe(scenes):
@@ -4466,6 +4832,280 @@ class Smoke:
                   f"{c.n} eager aten ops a step [{self.card}]")
         self.device_share(lambda: sim.step(model, sim.init_state(batch=B),
                                            u), f"one batched step (B={B})")
+
+    # 15 ------------------------------------------------------------------
+    @staticmethod
+    def scene_files(res=ROLL_RES):
+        """{name: (bundled constructor, its SceneSpec)} of the scenes the
+        scene_xml phase writes: RollingBall res x res and TactilePush."""
+        from tactilesimulation_tpu_torch.model import task_scenes
+        out = {}
+        for name, fn in (
+                ("rolling_ball", lambda **k: task_scenes.rolling_ball(
+                    resolution=res, **k)),
+                ("tactile_push", task_scenes.tactile_push)):
+            out[name] = (fn, fn(spec_only=True))
+        return out
+
+    def scene_xml(self, dev):
+        """Slice 13, scenes from XML files, at RollingBall ROLL_RES; the
+        process has not imported matplotlib by its end."""
+        self.scene_xml_run(dev, ROLL_RES)
+        if "matplotlib" in sys.modules:
+            raise AssertionError("the scene path imported matplotlib")
+
+    def scene_xml_run(self, dev, res):
+        """(a) write, parse, build and compile the files natively; (b) the
+        RollingBall CLI's --scene; (c) GD on the TactilePush file; (d) the
+        facade from the RollingBall file."""
+        tmp = tempfile.mkdtemp()
+        paths = self.scene_xml_build(dev, tmp, res)
+        self.scene_xml_cli(dev, paths["rolling_ball"], res)
+        self.scene_xml_gd(dev, paths["tactile_push"], tmp)
+        self.scene_xml_facade(dev, paths["rolling_ball"], res)
+
+    def scene_xml_build(self, dev, tmp, res):
+        """(a) each scene of ``scene_files`` written as XML, parsed by the
+        port and built on ``dev``: every Structure field and Model leaf
+        equal to the bundled scene's (float64, bit for bit); then compiled
+        by the native compiler (g++, on the host) and held to the build.
+        Returns {name: path}."""
+        from tactilesimulation_tpu_torch.model import (builder, native,
+                                                       xml_parser)
+        t0 = time.perf_counter()
+        native.build_native(force=True)
+        print(f"  native compiler built with g++ in "
+              f"{time.perf_counter() - t0:.2f} s ({native.LIBRARY})")
+        paths = {}
+        for name, (bundled, spec) in self.scene_files(res).items():
+            path = os.path.join(tmp, f"{name}.xml")
+            t0 = time.perf_counter()
+            if write_scene_xml(spec, path):
+                raise AssertionError(f"{name}: not written exactly")
+            t1 = time.perf_counter()
+            parsed = xml_parser.parse_scene(path)
+            t2 = time.perf_counter()
+            struct, model = builder.build(parsed, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            nm = native.compile_scene(path)
+            t4 = time.perf_counter()
+            s_ref, m_ref = bundled()
+            diff = (tree_diff(struct, s_ref, "Structure")
+                    + tree_diff(model, m_ref.to(dev), "Model"))
+            bad = native_mismatches(nm, struct, model)
+            print(f"  {name}: {os.path.getsize(path)} bytes of XML written "
+                  f"in {t1 - t0:.3f} s, parsed in {t2 - t1:.3f} s, built on "
+                  f"{dev.type} in {t3 - t2:.3f} s ({struct.ndof_q} dofs, "
+                  f"{len(struct.cp_joint)} contact points, "
+                  f"{struct.ndof_tactile // 3} markers), native compile "
+                  f"{t4 - t3:.3f} s; against the bundled scene: "
+                  f"{diff or 'equal'}; native against the build: "
+                  f"{bad or 'agrees'}")
+            if diff or bad:
+                raise AssertionError(f"{name}: the file's scene differs")
+            paths[name] = path
+        return paths
+
+    def scene_xml_cli(self, dev, path, res):
+        """(b) the RollingBall CLI with --scene at f32, at each batch of
+        SCENE_CLI_BATCHES: one read launch a chunk (the batched entry at
+        B > 1) and no points-entry launch; its last run bit-equal to the
+        bundled scene's rollout of the same controls."""
+        import contextlib
+        import io
+        from tactilesimulation_tpu_torch.examples import rolling_ball_speed
+        from tactilesimulation_tpu_torch.model import task_scenes
+        from tactilesimulation_tpu_torch.ops import dense_contact
+        from tactilesimulation_tpu_torch.sim import simulation
+        card = dev.type == "cuda"
+        sync = torch.cuda.synchronize if card else (lambda: None)
+        struct, m64 = task_scenes.rolling_ball(resolution=res)
+        model = m64.to(dev, torch.float32)
+        sim = simulation.Simulator(struct, model)
+        rollout = sim.make_rollout_strided(ROLL_STRIDE, remat=False,
+                                           fast_tactile=True)
+        us = torch.as_tensor(rolling_ball_speed.control_chunks(
+            ROLL_STEPS, struct.ndof_u), dtype=torch.float32, device=dev)
+        for B in SCENE_CLI_BATCHES:
+            state0 = sim.init_state(batch=None if B == 1 else B)
+            rollout(model, state0, us[:1])
+            sync()
+            t0 = time.perf_counter()
+            rollout(model, state0, us[:1])
+            sync()
+            chunk = time.perf_counter() - t0
+            K = min(max(int(SCENE_CLI_BUDGET_S / (6 * chunk)), 1),
+                    ROLL_STEPS // ROLL_STRIDE)
+            steps = K * ROLL_STRIDE
+            print(f"  --scene --batch {B}: a probe chunk takes "
+                  f"{chunk * 1e3:.1f} ms: --steps {steps} (six runs within "
+                  f"{SCENE_CLI_BUDGET_S:.0f} s)")
+            argv = ["--scene", path, "--steps", str(steps), "--batch",
+                    str(B)] + ([] if card else ["--cpu"])
+            dense_contact.reset_counts()
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                out, _ = rolling_ball_speed.main(argv)
+            sync()
+            wall = time.perf_counter() - t0
+            reads = (dense_contact.read_launches, dense_contact.launches)
+            fps = [line for line in log.getvalue().splitlines()
+                   if "FPS" in line]
+            # the same steps on the bundled scene: the CLI's last controls
+            want = rollout(model, state0,
+                           rolling_ball_speed.repeat_controls(us[:K])[-1])
+            sync()
+            state, qs, tacs = out[0], out[1], out[3]
+            equal = {k: bool(torch.equal(a, b)) for k, a, b in (
+                ("q", state.q, want[0].q), ("qdot", state.qdot,
+                                            want[0].qdot),
+                ("qs", qs, want[1]), ("tactile", tacs, want[3]))}
+            print(f"  --scene --batch {B} --steps {steps}: "
+                  f"{fps[0].strip() if fps else 'no FPS line'}; "
+                  f"{1e3 * wall / (5 * steps):.1f} ms a step over the five "
+                  f"runs (the first included, {wall:.1f} s); read launches "
+                  f"{reads[0]} (want {5 * K if card else 0}), points entry "
+                  f"{reads[1]}; bit-equal to the bundled scene {equal} "
+                  f"[{self.card}]")
+            if reads != ((5 * K if card else 0), 0):
+                raise AssertionError("--scene did not read once a chunk "
+                                     "through the read kernel")
+            if not all(equal.values()):
+                raise AssertionError("--scene differs from the bundled "
+                                     "scene")
+            self.count_launches(**{"K4R" if B == 1 else "K4RB": reads[0]})
+
+    def scene_xml_gd(self, dev, path, tmp):
+        """(c) GD on TactilePush made from its file: gd_tactile.yaml's actor
+        at SCENE_GD, one epoch a train() call (the second resumes the
+        first's state): K2 = K3 = H, K1 = 1 + H, K1T = H - 1 an epoch and
+        the twin never; finite loss, the parameters move; the profiled
+        epoch's trace names K2's and K3's kernels; the scalar log holds
+        GD_TAGS for every epoch; the allocator's peak."""
+        import glob
+        import re
+        import yaml
+        from tactilesimulation_tpu_torch.algorithms.gd import GD
+        from tactilesimulation_tpu_torch.envs import tactile_push
+        from tactilesimulation_tpu_torch.utils import logging as log
+        from tactilesimulation_tpu_torch.utils import profiling
+        card = dev.type == "cuda"
+        E, H, epochs = SCENE_GD["E"], SCENE_GD["H"], SCENE_GD["epochs"]
+        with open(GD_CFG) as fp:
+            cfg = yaml.safe_load(fp)["params"]
+        cfg["config"].update(num_episodes=E, num_epochs=epochs,
+                             profile_epochs=list(SCENE_GD["profile"]))
+        env = tactile_push.make(cfg["env"]["observation_type"], device=dev,
+                                seed=0, scene_path=path)
+        env.max_episode_steps = H
+        logdir = os.path.join(tmp, "gd")
+        trainer = GD(env, cfg, logdir=logdir, seed=0)
+        lenv = trainer.rollout_env
+        if card and not lenv.solver_mega:
+            raise AssertionError("the file's TactilePush did not pick the "
+                                 "megastep")
+        before = [p.detach().clone() for p in trainer.actor.parameters()]
+        want = dict(K2=H, K3=H, K1=1 + H, K1T=H - 1, twin=0) if card else None
+        for epoch in range(epochs):
+            for op in (lenv.megastep, lenv.pair_wrenches):
+                if op is not None:
+                    op.reset_counts()
+            t0 = time.perf_counter()
+            mean_r = trainer.train(stop_epoch=epoch + 1)
+            if card:
+                torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            pw, mega = lenv.pair_wrenches, lenv.megastep
+            counts = dict(K2=mega.fwd_launches if mega else 0,
+                          K3=mega.bwd_launches if mega else 0,
+                          K1=pw.launches, K1T=pw.bwd_launches,
+                          twin=pw.twin_vjps + pw.twin_recomputes)
+            print(f"  GD on the file, E={E} H={H}, epoch {epoch}: {sec:.2f} s"
+                  f" (profiled: {epoch in range(*SCENE_GD['profile'])}), "
+                  f"mean reward {mean_r:.4f}; launches {counts} (want "
+                  f"{want}) [{self.card}]")
+            if want is not None:
+                if counts != want:
+                    raise AssertionError("GD on the file did not run through "
+                                         "K2/K3/K1/K1T as expected")
+                self.count_launches(**{k: counts[k] for k in
+                                       ("K1", "K1T", "K2", "K3")})
+        moved = max(float((p.detach() - b).abs().max()) for p, b in
+                    zip(trainer.actor.parameters(), before))
+        scalars = log.read_scalars(os.path.join(logdir, "log"))
+        losses = [v for _, v in scalars.get("loss/iter", [])]
+        print(f"  scalars ({trainer.scalar_backend}): "
+              + ", ".join(f"{t} {scalars.get(t)}" for t in GD_TAGS)
+              + f"; max parameter move {moved:.3e}")
+        if any(len(scalars.get(t, [])) != epochs for t in GD_TAGS):
+            raise AssertionError("the scalar log lacks GD's tags")
+        if not (losses and all(math.isfinite(x) for x in losses)
+                and moved > 0):
+            raise AssertionError("GD on the file: non-finite loss or the "
+                                 "parameters did not move")
+        traces = glob.glob(os.path.join(logdir, "profile", "*.json"))
+        names = set()
+        for tr in traces:
+            with open(tr) as fp:
+                events = json.load(fp)["traceEvents"]
+            names |= {e.get("name", "") for e in events
+                      if e.get("cat") == "kernel"}
+        found = {k: any(re.search(rf"\b{k}\b", n) for n in names)
+                 for k in ("fwd_kernel", "bwd_kernel")}
+        print(f"  trace: {len(traces)} file(s), {len(names)} kernel names; "
+              f"K2's fwd_kernel and K3's bwd_kernel (csrc/megastep.cu) "
+              f"{found}")
+        if not traces or (card and not all(found.values())):
+            raise AssertionError("the profiled epoch's trace does not name "
+                                 "K2's and K3's kernels")
+        stats = profiling.device_memory_stats(dev)
+        peak = stats.get("allocated_bytes.all.peak", 0)
+        print(f"  device memory: peak allocated {peak / 2 ** 20:.1f} MiB, "
+              f"free {stats.get('free_bytes', 0) / 2 ** 30:.1f} of "
+              f"{stats.get('total_bytes', 0) / 2 ** 30:.1f} GiB")
+        if card and not peak > 0:
+            raise AssertionError("device_memory_stats reports no peak")
+
+    def scene_xml_facade(self, dev, path, res):
+        """(d) Simulation(path) at f32 over SCENE_FACADE_STEPS steps through
+        forward and get_tactile_force_vector, bit-equal to Simulation((struct,
+        model)) of the bundled scene; one read launch a step."""
+        from tactilesimulation_tpu_torch.model import task_scenes
+        from tactilesimulation_tpu_torch.ops import dense_contact
+        from tactilesimulation_tpu_torch.sim.simulation import Simulation
+        card = dev.type == "cuda"
+        runs, reads = {}, 0
+        for key, src in (("file", path),
+                         ("bundled", task_scenes.rolling_ball(res))):
+            sim = Simulation(src, device=dev, dtype=torch.float32)
+            sim.reset()
+            sim.set_u([0.0, 0.0, 0.2])
+            dense_contact.reset_counts()
+            t0 = time.perf_counter()
+            out = []
+            for _ in range(SCENE_FACADE_STEPS):
+                sim.forward(1)
+                out.append((sim.get_q(), sim.get_qdot(),
+                            sim.get_tactile_force_vector()))
+            sec = time.perf_counter() - t0
+            if key == "file":
+                reads = dense_contact.read_launches
+            runs[key] = out
+            print(f"  facade from the {key} scene: {SCENE_FACADE_STEPS} "
+                  f"steps in {sec:.2f} s")
+        equal = all(np.array_equal(a, b) for sa, sb in
+                    zip(runs["file"], runs["bundled"]) for a, b in zip(sa, sb))
+        want = SCENE_FACADE_STEPS if card else 0
+        print(f"  facade: bit-equal {equal}; read launches {reads} (want "
+              f"{want}) [{self.card}]")
+        if not equal or reads != want:
+            raise AssertionError("the facade from the file differs from the "
+                                 "bundled scene's, or did not read through "
+                                 "the read kernel")
+        self.count_launches(K4R=reads)
 
 
 class Child:

@@ -18,14 +18,19 @@ recomputes each env step in the backward (``batched_rollout_fn``'s
 episodes on the env (``rollout_fn``), or lane episodes at B = 1 when GD
 was handed a lane env.
 
+Observability, as in the JAX package: ``logs.txt``, TensorBoard scalars
+(``utils.logging.SummaryWriter`` in ``<logdir>/log``: ``rewards/step``,
+``rewards/iter``, ``loss/iter``, ``grad_norm/iter`` and the phase timer's
+``profile/update_mean_s``), and with ``config.profile_epochs = [lo, hi)`` a
+``torch.profiler`` trace of those epochs in ``<logdir>/profile``
+(``utils.profiling.trace``).
+
 Deviations from the JAX package:
 - episodes draw their reset and disturbance noise from the rollout env's
   ``torch.Generator`` (seeded from ``seed``), whose state the checkpoint
   carries; ``evaluate`` from the env's generator seeded to ``seed + 1``;
   the JAX package splits PRNG keys;
-- no data-parallel episode sharding (ROADMAP queue 1, item 9), no
-  profiler capture (``profile_epochs``) and no TensorBoard writer (item
-  10; ``logs.txt`` and the console only).
+- no data-parallel episode sharding (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import torch
 from ..models.nets import DiagGaussianActor
 from ..utils import checkpoint
 from ..utils import logging as log
+from ..utils import profiling
 from ..utils.running_mean_std import RunningMeanStd
 
 
@@ -139,6 +145,11 @@ class GD:
         self.use_obs_rms = config.get("obs_rms", False)
         self.remat = config.get("remat", True)
         self.logdir = logdir
+        # config.profile_epochs = [lo, hi): a profiler trace of those epochs
+        # in <logdir>/profile
+        self.profile_epochs = tuple(config.get("profile_epochs", ()))
+        self.timer = profiling.PhaseTimer()
+        self.scalar_backend = None    # the last train()'s writer backend
         lane = (env.lane_env() if config.get("lane_rollouts", True)
                 and hasattr(env, "lane_env") else None)
         self.rollout_env = lane if lane is not None else env
@@ -209,39 +220,66 @@ class GD:
         textlog = (log.TextLog(os.path.join(self.logdir, "logs.txt"),
                                append=self._epoch > 0)
                    if self.logdir else None)
+        writer = (log.SummaryWriter(os.path.join(self.logdir, "log"))
+                  if self.logdir else None)
+        self.scalar_backend = writer.backend if writer else None
         episode_rewards = deque(maxlen=200)
         best = self._best
         t_start = time.time()
         steps = 0
         if self.logdir and self._epoch == 0:
             self.save("init_policy")
-        for epoch in range(self._epoch, end_epoch):
-            t0 = time.time()
-            loss, ep_rewards, _, gnorm = self.update()
-            ep = ep_rewards.cpu().numpy()
-            episode_rewards.extend(ep.tolist())
-            steps += self.num_episodes * self.horizon
-            mean_r = float(np.mean(episode_rewards))
-            fps = steps / (time.time() - t_start)
-            msg = (f"epoch {epoch}: num steps = "
-                   f"{(epoch + 1) * self.num_episodes * self.horizon}, "
-                   f"FPS = {fps:.1f}, mean(reward) = {mean_r:.6f}, "
-                   f"loss = {float(loss):.6f}, grad_norm = "
-                   f"{float(gnorm):.3f}, seconds = {time.time() - t0:.2f}")
-            if mean_r > best:
-                log.print_ok(msg)
-                best = mean_r
+        profile = None
+        try:
+            for epoch in range(self._epoch, end_epoch):
+                if self.profile_epochs and self.logdir:
+                    if epoch == self.profile_epochs[0]:
+                        profile = profiling.trace(
+                            os.path.join(self.logdir, "profile"))
+                        profile.__enter__()
+                    elif epoch == self.profile_epochs[1] and profile:
+                        profile.__exit__(None, None, None)
+                        profile = None
+                t0 = time.time()
+                with self.timer.phase("update") as box:
+                    loss, ep_rewards, _, gnorm = self.update()
+                    box["sync"] = (loss, gnorm)
+                episode_rewards.extend(ep_rewards.cpu().numpy().tolist())
+                steps += self.num_episodes * self.horizon
+                total_steps = (epoch + 1) * self.num_episodes * self.horizon
+                mean_r = float(np.mean(episode_rewards))
+                fps = steps / (time.time() - t_start)
+                msg = (f"epoch {epoch}: num steps = {total_steps}, "
+                       f"FPS = {fps:.1f}, mean(reward) = {mean_r:.6f}, "
+                       f"loss = {float(loss):.6f}, grad_norm = "
+                       f"{float(gnorm):.3f}, seconds = "
+                       f"{time.time() - t0:.2f}")
+                if mean_r > best:
+                    log.print_ok(msg)
+                    best = mean_r
+                    if self.logdir:
+                        self.save()
+                else:
+                    print(msg, flush=True)
+                if textlog:
+                    textlog.append(msg)
+                if writer:
+                    writer.add_scalar("rewards/step", mean_r, total_steps)
+                    writer.add_scalar("rewards/iter", mean_r, epoch)
+                    writer.add_scalar("loss/iter", float(loss), epoch)
+                    writer.add_scalar("grad_norm/iter", float(gnorm), epoch)
+                    self.timer.log_to(writer, epoch)
+                    writer.flush()
+                self._best, self._epoch = best, epoch + 1
                 if self.logdir:
-                    self.save()
-            else:
-                print(msg, flush=True)
-            if textlog:
-                textlog.append(msg)
-            self._best, self._epoch = best, epoch + 1
-            if self.logdir:
-                self.save_checkpoint()
-                if epoch % 50 == 0:
-                    self.save(f"policy_iter{epoch}_reward{mean_r:.2f}")
+                    self.save_checkpoint()
+                    if epoch % 50 == 0:
+                        self.save(f"policy_iter{epoch}_reward{mean_r:.2f}")
+        finally:
+            if profile:
+                profile.__exit__(None, None, None)
+            if writer:
+                writer.close()
         if self.logdir:
             self.save("final_policy")
         return float(np.mean(episode_rewards)) if episode_rewards else \

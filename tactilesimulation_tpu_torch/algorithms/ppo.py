@@ -27,8 +27,12 @@ Deviations from the JAX package:
 - draws come from three ``torch.Generator``s, the env's (resets and
   disturbances), the policy's and the minibatch permutation's, all seeded
   from ``seed`` and all in the checkpoint; a reset is drawn only for the
-  envs that end;
-- no TensorBoard writer (``logs.txt`` and the console).
+  envs that end.
+
+Each update with finished episodes goes to the console, ``logs.txt`` and
+TensorBoard scalars in ``<logdir>/log`` (``utils.logging.SummaryWriter``;
+``_scalars``: ``rewards/step`` and ``losses/{value,action,entropy}`` at the
+update's env-step count), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -402,6 +406,13 @@ class PPO:
         return (f"mean/median reward {float(np.mean(episode_rewards)):.1f}/"
                 f"{float(np.median(episode_rewards)):.1f}")
 
+    def _scalars(self, episode_rewards, successes, metrics):
+        """{tag: value} written to TensorBoard after an update."""
+        loss, aloss, vloss, ent = (float(m) for m in metrics)
+        return {"rewards/step": float(np.mean(episode_rewards)),
+                "losses/value": vloss, "losses/action": aloss,
+                "losses/entropy": ent}
+
     # ------------------------------------------------------------------
     def train(self, stop_update: Optional[int] = None):
         """Run updates [resumed update, num_updates); ``stop_update``
@@ -414,6 +425,8 @@ class PPO:
         textlog = (log.TextLog(os.path.join(self.logdir, "logs.txt"),
                                append=self._resume_blob is not None)
                    if self.logdir else None)
+        writer = (log.SummaryWriter(os.path.join(self.logdir, "log"))
+                  if self.logdir else None)
         if self._resume_blob is not None:
             blob, self._resume_blob = self._resume_blob, None
             carry, update0 = blob["carry"], blob["update"]
@@ -457,6 +470,11 @@ class PPO:
                 print(msg, flush=True)
                 if textlog:
                     textlog.append(msg)
+                if writer:
+                    for tag, x in self._scalars(episode_rewards, successes,
+                                                metrics).items():
+                        writer.add_scalar(tag, x, total_steps)
+                    writer.flush()
                 if (self.logdir and score > best
                         and len(episode_rewards) >= self.MIN_EPISODES):
                     best = score
@@ -480,6 +498,8 @@ class PPO:
             self.save_checkpoint()
             if end_update >= self.num_updates:
                 self.save("final_policy")
+        if writer:
+            writer.close()
         return (self._score(episode_rewards, successes) if episode_rewards
                 else 0.0)
 

@@ -34,8 +34,10 @@ Deviations from the JAX package:
   checkpoint;
 - the learning rate decays as ``use_linear_lr_decay`` says (the reference
   protocol's yaml sets it); the JAX trainer keeps it constant whatever the
-  config says;
-- no TensorBoard writer (``logs.txt`` and the console).
+  config says.
+
+Its TensorBoard scalars are the JAX trainer's: ``rewards/step`` and
+``success_rate/step``.
 """
 
 from __future__ import annotations
@@ -214,6 +216,11 @@ class PPORNN(PPO):
     def _score_text(self, episode_rewards, successes):
         return (f"reward {float(np.mean(episode_rewards)):.1f} | success "
                 f"{float(np.mean(successes)):.3f}")
+
+    def _scalars(self, episode_rewards, successes, metrics):
+        return {"rewards/step": float(np.mean(episode_rewards)),
+                "success_rate/step": (float(np.mean(successes))
+                                      if successes else 0.0)}
 
     # -- evaluation ----------------------------------------------------------
     @torch.no_grad()

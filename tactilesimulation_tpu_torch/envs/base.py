@@ -39,6 +39,16 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def load_scene(scene_path, bundled: Callable):
+    """(struct, model) of the redmax XML file ``scene_path`` (the model in
+    float64 on the host, as the bundled scenes build), or ``bundled()``
+    where no path is given."""
+    if not scene_path:
+        return bundled()
+    from ..model import builder, xml_parser
+    return builder.build(xml_parser.parse_scene(scene_path))
+
+
 @dataclasses.dataclass(frozen=True)
 class EnvState:
     sim: SimState

@@ -38,7 +38,7 @@ import torch
 from ..model import task_scenes
 from ..ops import tactile_query
 from ..sim import dynamics, integrators, kinematics
-from .base import EnvState, FunctionalEnv, resolve_device
+from .base import EnvState, FunctionalEnv, load_scene, resolve_device
 
 ROWS, COLS = 20, 20
 DOF_LIMIT = np.array([[-0.45, 1.35], [-2, 2], [1, 2]] * 3, dtype=np.float64)
@@ -225,12 +225,11 @@ class DClawRotateEnv(FunctionalEnv):
 def make(observation_type: str = "tactile", *, torque_control: bool = False,
          relative_control: bool = True, device="cuda", dtype=torch.float32,
          seed: int = 0, scene_path: str = None) -> DClawRotateEnv:
-    """The bundled procedural D'Claw with its model on ``device`` (the card
-    unless ``device='cpu'``)."""
-    if scene_path:
-        raise NotImplementedError("the XML scene parser is not ported; the "
-                                  "bundled scene is model.task_scenes.dclaw")
+    """The bundled procedural D'Claw, or the redmax XML file
+    ``scene_path`` (e.g. the original dclaw_*_control.xml assets with their
+    contact and tactile sidecar files), with its model on ``device`` (the
+    card unless ``device='cpu'``)."""
     device = resolve_device(device)
-    struct_, model = task_scenes.dclaw()
+    struct_, model = load_scene(scene_path, task_scenes.dclaw)
     return DClawRotateEnv(struct_, model.to(device, dtype), observation_type,
                           torque_control, relative_control, seed)

@@ -1,8 +1,8 @@
 """Host-side stateful wrapper exposing the reference gym API.
 
 Port of ``tactilesimulation_tpu/envs/gym_wrapper.py``: ``reset() -> obs``,
-``step(u) -> (obs, reward, done, info)``, ``seed()`` and the shape
-attributes over a ``FunctionalEnv``. Numpy in and out; the env's tensors
+``step(u) -> (obs, reward, done, info)``, ``seed()``, ``render()`` and the
+shape attributes over a ``FunctionalEnv``. Numpy in and out; the env's tensors
 stay on its device in between.
 """
 
@@ -56,5 +56,21 @@ class GymEnv:
         return _to_numpy(obs), float(reward), done, info
 
     def render(self, mode="once", record_path="render.gif"):
-        raise NotImplementedError("utils/renderer.py is not ported "
-                                  "(ROADMAP.md queue 1, item 11)")
+        """Headless replay of the episode so far (modes once, loop and
+        record). ``once`` and ``loop`` return the current frame as an RGB
+        array; ``record`` writes the episode's trajectory to
+        ``record_path`` (a GIF, or numbered PNGs where the path is a
+        folder) and returns the frame count. Envs that randomise their
+        model per episode are drawn with that episode's model
+        (``_model_for``)."""
+        from ..utils import renderer
+        env = self.env
+        if hasattr(env, "_model_for") and self._state is not None:
+            model = env._model_for(self._state.extras)
+        else:
+            model = env.model
+        if mode == "record" and len(getattr(self, "_traj", [])) > 1:
+            return renderer.render_trajectory(
+                env.struct, model, np.stack(self._traj), record_path)
+        return renderer.frame_pixels(renderer.render_frame(
+            env.struct, model, self._state.sim.q.cpu().numpy()))

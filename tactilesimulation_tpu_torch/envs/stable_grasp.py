@@ -48,7 +48,7 @@ from ..model import task_scenes
 from ..ops import tactile_query
 from ..sim import dynamics, integrators
 from . import start_pose
-from .base import EnvState, FunctionalEnv, resolve_device
+from .base import EnvState, FunctionalEnv, load_scene, resolve_device
 
 TACTILE_ROWS, TACTILE_COLS = 13, 10
 NUM_BLOCKS = 11
@@ -323,14 +323,11 @@ class StableGraspEnv(FunctionalEnv):
 def make(observation_type: str = "tactile_map", *, device="cuda",
          dtype=torch.float32, seed: int = 0,
          scene_path: str = None) -> StableGraspEnv:
-    """The bundled StableGrasp scene with its model on ``device`` (the card
-    unless ``device='cpu'``)."""
-    if scene_path:
-        raise NotImplementedError("the XML scene parser is not ported; the "
-                                  "bundled scene is model.task_scenes."
-                                  "stable_grasp")
+    """The bundled StableGrasp scene, or the redmax XML file
+    ``scene_path``, with its model on ``device`` (the card unless
+    ``device='cpu'``)."""
     device = resolve_device(device)
-    struct_, model = task_scenes.stable_grasp()
+    struct_, model = load_scene(scene_path, task_scenes.stable_grasp)
     return StableGraspEnv(struct_, model.to(device, dtype), observation_type,
                           seed)
 

@@ -52,7 +52,7 @@ from ..model import task_scenes
 from ..ops import tactile_query
 from ..sim import dynamics, integrators, spatial
 from . import start_pose
-from .base import EnvState, FunctionalEnv, resolve_device
+from .base import EnvState, FunctionalEnv, load_scene, resolve_device
 
 ROWS, COLS = 13, 10
 EXEC_STEPS = 45
@@ -470,14 +470,11 @@ class TactileInsertionEnv(FunctionalEnv):
 def make(observation_type: str = "tactile_map", *, device="cuda",
          dtype=torch.float32, seed: int = 0, scene_path: str = None,
          **kwargs) -> TactileInsertionEnv:
-    """The bundled TactileInsertion scene with its model on ``device`` (the
-    card unless ``device='cpu'``); ``kwargs`` are the env's options."""
-    if scene_path:
-        raise NotImplementedError("the XML scene parser is not ported; the "
-                                  "bundled scene is model.task_scenes."
-                                  "tactile_insertion")
+    """The bundled TactileInsertion scene, or the redmax XML file
+    ``scene_path``, with its model on ``device`` (the card unless
+    ``device='cpu'``); ``kwargs`` are the env's options."""
     device = resolve_device(device)
-    struct_, model = task_scenes.tactile_insertion()
+    struct_, model = load_scene(scene_path, task_scenes.tactile_insertion)
     return TactileInsertionEnv(struct_, model.to(device, dtype),
                                observation_type, seed=seed, **kwargs)
 

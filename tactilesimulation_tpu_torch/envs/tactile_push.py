@@ -31,7 +31,7 @@ import torch
 from ..model import task_scenes
 from ..ops import tactile_query
 from ..sim import dynamics, integrators, kinematics
-from .base import EnvState, FunctionalEnv, resolve_device
+from .base import EnvState, FunctionalEnv, load_scene, resolve_device
 
 TACTILE_ROWS, TACTILE_COLS = 13, 10
 OBS_TYPES = ("tactile_flatten", "tactile_map", "privilege", "no_tactile")
@@ -217,13 +217,10 @@ class TactilePushEnv(FunctionalEnv):
 def make(observation_type: str = "tactile_flatten", *, device="cuda",
          dtype=torch.float32, seed: int = 0,
          scene_path: str = None) -> TactilePushEnv:
-    """The bundled TactilePush scene with its model on ``device`` (the card
-    unless ``device='cpu'``)."""
-    if scene_path:
-        raise NotImplementedError("the XML scene parser is not ported; the "
-                                  "bundled scene is model.task_scenes."
-                                  "tactile_push")
+    """The bundled TactilePush scene, or the redmax XML file
+    ``scene_path``, with its model on ``device`` (the card unless
+    ``device='cpu'``)."""
     device = resolve_device(device)
-    struct_, model = task_scenes.tactile_push()
+    struct_, model = load_scene(scene_path, task_scenes.tactile_push)
     return TactilePushEnv(struct_, model.to(device, dtype), observation_type,
                           seed)

@@ -8,8 +8,13 @@ ball position with respect to the chunk controls, over ``--grad-steps``
 steps.
 
     python -m tactilesimulation_tpu_torch.examples.rolling_ball_speed \
-        [--steps 350] [--resolution 200] [--f64] [--cpu] [--batch B] \
-        [--lanes] [--viz DIR] [--grad [--grad-steps 100]]
+        [--steps 350] [--resolution 200 | --scene PATH] [--f64] [--cpu] \
+        [--batch B] [--lanes] [--viz DIR] [--grad [--grad-steps 100]]
+
+``--scene PATH`` loads the scene from a redmax XML file (e.g. the
+reference's assets/tactile_pad/tactile_pad.xml) in place of the bundled
+``task_scenes.rolling_ball(resolution)``; every other option works as with
+the bundled scene.
 
 ``--batch B`` runs B copies of the scene at once through the batched
 single-instance core (states (B, n); the JAX CLI ``vmap``s its rollout),
@@ -17,7 +22,8 @@ each chunk's field of every copy in one tactile read; FPS counts B x the
 steps. ``--lanes`` runs the B copies through the lane-major stepper
 instead (``sim/lanes.py``: ``lanes.build_step``, BDF2), its plain lane
 field every 5 steps, as the JAX CLI does (no read kernel). ``--viz DIR``
-writes ``depth.png`` and ``force.png`` of the last frame (copy 0).
+writes ``depth.png`` and ``force.png`` of the last frame (copy 0, the
+first sensor's rows x cols).
 
 Runs on the CUDA card (the tactile reads of the forward run go through the
 read kernel; BPTT takes the differentiable field) and raises without one
@@ -46,6 +52,19 @@ def control_chunks(steps: int, nu: int) -> np.ndarray:
     us = us[:steps]
     K = us.shape[0] // STRIDE
     return us[:K * STRIDE:STRIDE]
+
+
+def repeat_controls(us, runs: int = 4, seed: int = 100):
+    """The controls of the timed repeats: each run's are the run before's
+    moved by 1e-4 x a standard normal draw (``RandomState(seed)``), the
+    JAX CLI's repeat protocol."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(runs):
+        us = us + torch.as_tensor(1e-4 * rng.randn(*us.shape),
+                                  dtype=us.dtype, device=us.device)
+        out.append(us)
+    return out
 
 
 def sync(device):
@@ -106,6 +125,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=350)
     ap.add_argument("--resolution", type=int, default=200)
+    ap.add_argument("--scene", type=str, default="",
+                    help="a redmax XML scene file to load in place of the "
+                         "bundled scene (--resolution is then unused)")
     ap.add_argument("--f64", action="store_true")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--grad", action="store_true",
@@ -126,13 +148,15 @@ def main(argv=None):
     if args.batch < 1:
         ap.error("--batch takes 1 or more")
 
-    from tactilesimulation_tpu_torch.envs.tactile_push import resolve_device
+    from tactilesimulation_tpu_torch.envs.base import (load_scene,
+                                                       resolve_device)
     from tactilesimulation_tpu_torch.model import task_scenes
     from tactilesimulation_tpu_torch.sim.simulation import Simulator
 
     device = resolve_device("cpu" if args.cpu else "cuda")
     dtype = torch.float64 if args.f64 else torch.float32
-    struct, model = task_scenes.rolling_ball(resolution=args.resolution)
+    struct, model = load_scene(args.scene, lambda: task_scenes.rolling_ball(
+        resolution=args.resolution))
     model = model.to(device, dtype)
     sim = Simulator(struct, model)
     print(f"scene '{struct.name}': ndof_r={struct.ndof_q} "
@@ -159,11 +183,8 @@ def main(argv=None):
 
     # the JAX CLI's repeat protocol: perturbed controls, median of the later
     # runs (here fenced by torch.cuda.synchronize)
-    rng = np.random.RandomState(100)
     times = []
-    for _ in range(4):
-        us_chunks = us_chunks + torch.as_tensor(
-            1e-4 * rng.randn(*us_chunks.shape), dtype=dtype, device=device)
+    for us_chunks in repeat_controls(us_chunks):
         t0 = time.time()
         out = run(us_chunks)
         sync(device)
@@ -186,8 +207,8 @@ def main(argv=None):
           f"active markers = {(np.abs(tac[:, 2]) > 1e-9).sum()}")
     if args.viz:
         from tactilesimulation_tpu_torch.utils import tactile_viz
-        res = args.resolution
-        arr = tac.reshape(res, res, 3)
+        sensor = struct.sensors[0]
+        arr = tac.reshape(sensor.rows, sensor.cols, 3)
         os.makedirs(args.viz, exist_ok=True)
         for name, img in (("depth", tactile_viz.visualize_depth_image(arr)),
                           ("force", tactile_viz.visualize_tactile_image(arr))):

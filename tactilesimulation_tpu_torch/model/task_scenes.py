@@ -6,6 +6,8 @@ facts of the benchmark tasks, transcribed from the scene descriptions in
 SURVEY.md §2.4; each constructor documents its exemplar. The XML front-end
 (xml_parser.py) remains available for loading original redmax asset files,
 and tests assert the bundled scenes build identical Structure/Model pairs.
+Each constructor returns the built (Structure, Model) pair, or with
+``spec_only=True`` the ``SceneSpec`` it would build.
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ def _add_pad_sensor(b, name, pad_body, kn, kt, mu, damping):
                        kn=kn, kt=kt, mu=mu, damping=damping)
 
 
-def tactile_push():
+def tactile_push(spec_only: bool = False):
     """TactilePush scene (exemplar: envs/assets/pusher/pusher.xml)."""
     b = SceneBuilder("wsg_50", integrator="BDF1", timestep=5e-3,
                      ground=(0, 0, 0))
@@ -122,10 +124,10 @@ def tactile_push():
                       pos=(-0.007, 0, 0))
     b.add_endeffector("box", j_box, pos=(-0.025, 0, 0))
     b.add_virtual("goal", pos=(1, 0, 0.025), size=(0.05, 0.05, 0.05))
-    return b.build()
+    return b.spec if spec_only else b.build()
 
 
-def stable_grasp():
+def stable_grasp(spec_only: bool = False):
     """StableGrasp scene (exemplar: envs/assets/stable_grasp/stable_grasp.xml):
     gripper + 11-block bar (free3d-euler root, fixed chain) + 2 tables."""
     b = SceneBuilder("wsg_50", integrator="BDF1", timestep=5e-3,
@@ -182,10 +184,10 @@ def stable_grasp():
                                           "tactile_pad_right")):
         _add_pad_sensor(b, name, pad_body, kn=250.0, kt=1.25, mu=1.5,
                         damping=25.0)
-    return b.build()
+    return b.spec if spec_only else b.build()
 
 
-def tactile_insertion():
+def tactile_insertion(spec_only: bool = False):
     """TactileInsertion scene (exemplar:
     envs/assets/tactile_insertion/tactile_insertion.xml): gripper (force
     fingers) + free box + 4 hole walls."""
@@ -227,10 +229,10 @@ def tactile_insertion():
                                           "tactile_pad_right")):
         _add_pad_sensor(b, name, pad_body, kn=250.0, kt=1.25, mu=1.5,
                         damping=25.0)
-    return b.build()
+    return b.spec if spec_only else b.build()
 
 
-def rolling_ball(resolution=200):
+def rolling_ball(resolution=200, spec_only: bool = False):
     """RollingBall dense-field scene (exemplar:
     assets/tactile_pad/tactile_pad.xml): force-controlled pad with a
     resolution^2 marker grid over a free sphere, BDF2."""
@@ -252,10 +254,10 @@ def rolling_ball(resolution=200):
                        axis0=(0, -1, 0), axis1=(1, 0, 0),
                        rows=resolution, cols=resolution,
                        kn=1.0, kt=0.01, mu=2.0, damping=0.003)
-    return b.build()
+    return b.spec if spec_only else b.build()
 
 
-def dclaw(n_tactile_per_finger=300, seed=0):
+def dclaw(n_tactile_per_finger=300, seed=0, spec_only: bool = False):
     """Procedural D'Claw cap-rotation scene.
 
     Capability-parity construction of the reference scene
@@ -371,4 +373,4 @@ def dclaw(n_tactile_per_finger=300, seed=0):
     for i, (tip, j_tip, fname) in enumerate(tip_bodies):
         b.add_endeffector(f"finger{i + 1}", j_tip, pos=(0, 0, -tip_len))
     b.add_endeffector("cap", j_cap, pos=(0.04, 0, 0))
-    return b.build()
+    return b.spec if spec_only else b.build()

@@ -13,12 +13,11 @@ Port of ``tactilesimulation_tpu/sim/simulation.py``:
   recomputes each step (dense) or chunk (strided) in the backward with
   ``torch.utils.checkpoint``.
 - ``Simulation``: a host facade with the reference ``redmax_py`` binding
-  surface (dof properties, state access, ``reset`` / ``set_u`` /
+  surface (the constructor from a redmax XML file or a (struct, model)
+  pair, dof properties, state access, ``reset`` / ``set_u`` /
   ``forward``, tactile queries, the backward engine with its cache,
-  ``update_*`` model edits, ``export_trajectory``). The state stays on the
-  device until it is read.
-
-Not ported yet: ``replay`` and the XML constructor.
+  ``update_*`` model edits, ``export_trajectory``, ``viewer_options`` and
+  ``replay``). The state stays on the device until it is read.
 """
 
 from __future__ import annotations
@@ -32,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import dense_single, dynamics, integrators, kinematics
 from ..envs.tactile_push import resolve_device
-from ..model import builder
+from ..model import builder, xml_parser
 from ..model.schema import GEOM_CYLINDER, GEOM_SPHERE
 from ..ops import tactile_query
 from .types import Model, SimState, Structure
@@ -207,6 +206,21 @@ class _Options:
         self.h = h
 
 
+class _ViewerOptions:
+    """Replay and recording settings; rendering is offline
+    (``utils/renderer.py``)."""
+
+    def __init__(self):
+        self.fps = 30
+        self.speed = 1.0
+        self.loop = False
+        self.infinite = False
+        self.record = False
+        self.record_folder = "."
+        self.camera_pos = np.array([2.0, -2.5, 2.0])
+        self.camera_lookat = np.array([0.0, 0.0, 0.0])
+
+
 class _BackwardInfo:
     def __init__(self):
         self.flag_q0 = False
@@ -245,26 +259,30 @@ class Simulation:
     """Host facade with the reference binding surface: dof properties and
     state access, ``reset`` / ``set_u`` / ``forward``, tactile queries, the
     backward engine (``backward``, ``backward_steps``, the backward cache,
-    design-parameter gradients) and the ``update_*`` model edits.
-    ``backward()`` runs the recorded episode again with the graph kept and
-    pulls the seeded cotangents back through the solves' adjoint.
+    design-parameter gradients), the ``update_*`` model edits and
+    ``replay``. ``backward()`` runs the recorded episode again with the
+    graph kept and pulls the seeded cotangents back through the solves'
+    adjoint.
 
-    ``Simulation((struct, model), device="cuda", dtype=None)`` moves the
-    model to ``device`` (``dtype`` None keeps the model's own). The card is
-    the default and must exist; pass ``device="cpu"`` for the plain path."""
+    ``Simulation(model_path, device="cuda", dtype=None)``: ``model_path``
+    is a redmax XML file (parsed by ``xml_parser.parse_scene`` and built in
+    float64 on ``device``) or a prebuilt (struct, model) pair, moved to
+    ``device``; ``dtype`` None keeps the model's own. The card is the
+    default and must exist; pass ``device="cpu"`` for the plain path."""
 
     def __init__(self, model_path, verbose: bool = False, device="cuda",
                  dtype: Optional[torch.dtype] = None):
-        if not isinstance(model_path, tuple):
-            raise NotImplementedError(
-                "the XML scene constructor is not ported; pass a "
-                "(struct, model) pair, e.g. from model.task_scenes")
-        struct, model = model_path
         self.device = resolve_device(device)
+        if isinstance(model_path, tuple):
+            struct, model = model_path
+        else:
+            struct, model = builder.build(xml_parser.parse_scene(model_path),
+                                          device=self.device)
         self.struct = struct
         self.model = model.to(self.device, dtype or model.dtype)
         self.sim = Simulator(self.struct, self.model)
         self.options = _Options(float(self.model.h))
+        self.viewer_options = _ViewerOptions()
         self.backward_info = _BackwardInfo()
         self.backward_results = _BackwardResults()
         self._q_init = self.model.q_init.detach().cpu().numpy().copy()
@@ -571,3 +589,25 @@ class Simulation:
         if not self._trajectory:
             return np.zeros((0, self.ndof_r))
         return torch.stack(self._trajectory).cpu().numpy()
+
+    # -- replay ------------------------------------------------------------
+    def replay(self):
+        """Render the recorded trajectory offline; returns the frame count.
+
+        With ``viewer_options.record``, numbered PNG frames go into
+        ``viewer_options.record_folder`` (an animated GIF where the folder
+        ends with .gif; "replay_frames" where it is empty); otherwise the
+        last frame's RGB pixels are kept in ``last_render``."""
+        from ..utils import renderer
+        qs = self.export_trajectory()
+        if not len(qs):
+            return 0
+        vo = self.viewer_options
+        if vo.record:
+            return renderer.render_trajectory(
+                self.struct, self.model, qs, vo.record_folder or
+                "replay_frames", fps=vo.fps, speed=vo.speed, loop=vo.loop,
+                camera=(vo.camera_pos, vo.camera_lookat))
+        self.last_render = renderer.frame_pixels(
+            renderer.render_frame(self.struct, self.model, qs[-1]))
+        return 1

@@ -704,3 +704,17 @@ def test_dclaw_resets_read_through_the_kernel(card):
                          > 0).all()), "a fingertip misses the cap"
         plans.append(tactile_query.read_plan(env.struct, model))
     assert len({id(p) for p in plans}) == len(plans)
+
+
+def test_scene_xml_phase(card):
+    """chip_smoke's scene_xml phase at rolling_ball(16): the RollingBall and
+    TactilePush files built on the card equal to the bundled scenes and
+    agreeing with the native compiler; the CLI's --scene (one read launch a
+    chunk, bit-equal to the bundled scene); GD from the TactilePush file
+    (K2/K3/K1/K1T launches an epoch, the trace names K2's and K3's
+    kernels, the scalar tags); the facade from the file bit-equal."""
+    smoke = Smoke()
+    smoke.scene_xml_run(card, 16)
+    launches = {k: r["launches"] for k, r in smoke.kernel_rows.items()}
+    assert launches["K2"] == launches["K3"] > 0
+    assert launches["K4R"] > 0 and launches["K4RB"] > 0
